@@ -4,7 +4,8 @@ Builds the four CUDA kernels of ``loam_velodyne_torch`` from the sources
 in this checkout, compares each with its plain PyTorch version at the
 VLP-16 main-path shapes, then replays the 48-sweep synthetic benchmark
 sequence (noisy turning trajectory) through the engine's static-cadence
-chunks on ``cuda:0`` and checks the trajectory and telemetry.
+chunks on ``cuda:0`` and checks the trajectory and telemetry. It
+imports only ``loam_velodyne_torch`` (never JAX or the JAX package).
 
 Run from the repository root:  python3 chip_smoke.py
 Every failure raises (non-zero exit). The last line of standard output
@@ -15,16 +16,21 @@ kernel's launches, error and times.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
+import torch
 
-ROOT = Path(__file__).resolve().parent
+from loam_velodyne_torch.config import LoamConfig
+from loam_velodyne_torch.eval.metrics import ate_rmse
+from loam_velodyne_torch.io import synthetic
+from loam_velodyne_torch.models.engine import Engine
+from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, greedy_kernel,
+                                     grid_kernel, knn_kernel)
+
 SEED = 0
 N_SWEEPS = 48
 CHUNK = 8
@@ -40,26 +46,31 @@ def _card() -> str:
 
 
 def _nvcc_version() -> str:
-    from loam_velodyne_torch.ops import cuda_lib
     out = subprocess.run([cuda_lib.nvcc(), "--version"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[-1]
 
 
-def _load_synthetic():
-    # By file path: importing the JAX package's ``io`` package would run
-    # io/__init__.py, which imports the JAX driver. synthetic.py itself
-    # needs only numpy and the config dataclasses.
-    path = ROOT / "loam_velodyne_tpu" / "io" / "synthetic.py"
-    spec = importlib.util.spec_from_file_location("loam_synthetic", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod          # dataclasses look their module up
-    spec.loader.exec_module(mod)
-    return mod
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor):
+    """Run the sequence through the engine in chunks of CHUNK sweeps.
+    Returns the (n, 29) packed outputs and the host time at which the
+    first chunk had finished on the device."""
+    packed, t_first = [], None
+    for s in range(0, xyz.shape[0], CHUNK):
+        packed.append(engine.run_chunk(xyz[s:s + CHUNK], mask[s:s + CHUNK]).packed)
+        if t_first is None:
+            _sync(engine.device)
+            t_first = time.perf_counter()
+    _sync(engine.device)
+    return torch.cat(packed), t_first
 
 
 def _time_ms(fn, reps: int = 20) -> float:
-    import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -73,7 +84,6 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _max_abs_err(a, b) -> float:
-    import torch
     a, b = a.double(), b.double()
     both_inf = torch.isinf(a) & torch.isinf(b) & (torch.sign(a) == torch.sign(b))
     d = torch.where(both_inf, 0.0, (a - b).abs())
@@ -84,7 +94,6 @@ def _require_equal(name: str, got, want) -> float:
     """Integer outputs must match exactly; float outputs too (every
     kernel computes the same float32 operations in the same order as
     its plain version). Returns the max abs error of float outputs."""
-    import torch
     err = 0.0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
@@ -104,9 +113,6 @@ def _require_equal(name: str, got, want) -> float:
 def check_kernels(dev) -> list[dict]:
     """Each kernel against its plain version on the card, at VLP-16
     main-path shapes, inputs from a numpy seed."""
-    import torch
-    from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
-                                         grid_kernel, knn_kernel)
     rng = np.random.default_rng(SEED)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     rows = []
@@ -151,12 +157,12 @@ def check_kernels(dev) -> list[dict]:
         ok = torch.isfinite(top[:, :steps]).contiguous()
         args = (curv, cand, ok, picked0, left, right, 0.1, quota, sharp, corner)
         got = greedy_kernel.greedy_pick_rows(*args)
-        want = greedy_kernel.greedy_pick_rows_plain(*args, steps)
+        want = greedy_kernel.greedy_pick_rows_plain(*args)
         err = max(err, _require_equal("greedy_pick_rows", got, want))
     record("greedy_pick_rows", "loam_velodyne_torch/csrc/greedy.cu",
            "loam_velodyne_tpu/ops/pallas_greedy.py:90", err,
            lambda: greedy_kernel.greedy_pick_rows(*args),
-           lambda: greedy_kernel.greedy_pick_rows_plain(*args, steps))
+           lambda: greedy_kernel.greedy_pick_rows_plain(*args))
 
     # K3: corner (256 vs 2048) and surf (512 vs 8192) searches.
     err = 0.0
@@ -197,26 +203,10 @@ def check_kernels(dev) -> list[dict]:
 
 def run_engine(dev, card: str) -> dict:
     """Replay the benchmark sequence through the port's engine."""
-    import torch
-    from loam_velodyne_tpu.config import LoamConfig
-    from loam_velodyne_tpu.eval.metrics import ate_rmse
-    from loam_velodyne_torch.models.engine import Engine
-    from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
-                                         grid_kernel, knn_kernel)
-
-    synthetic = _load_synthetic()
-    traj = synthetic.turning_trajectory(speed=1.0)
-    sweeps, gt, _ = synthetic.generate_sequence(
-        N_SWEEPS, n_azimuth=900, speed=1.0, noise_std=0.005, traj=traj)
-    xyz = np.zeros((N_SWEEPS, SWEEP_CAP, 3), np.float32)
-    mask = np.zeros((N_SWEEPS, SWEEP_CAP), bool)
-    for i, pts in enumerate(sweeps):
-        k = min(len(pts), SWEEP_CAP)
-        xyz[i, :k], mask[i, :k] = pts[:k], True
+    cfg = LoamConfig.preset("VLP-16")
+    xyz, mask, gt = synthetic.bench_sequence(N_SWEEPS, cfg.lidar, SWEEP_CAP)
     xyz_d = torch.from_numpy(xyz).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
-
-    cfg = LoamConfig.preset("VLP-16")
     engine = Engine(cfg, dev)
     wrappers = {"grid_windows": grid_kernel.grid_windows,
                 "greedy_pick_rows": greedy_kernel.greedy_pick_rows,
@@ -226,14 +216,7 @@ def run_engine(dev, card: str) -> dict:
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    packed, t_first = [], None
-    for s in range(0, N_SWEEPS, CHUNK):
-        outs = engine.run_chunk(xyz_d[s:s + CHUNK], mask_d[s:s + CHUNK])
-        packed.append(outs.packed)
-        if t_first is None:
-            torch.cuda.synchronize()
-            t_first = time.perf_counter()
-    torch.cuda.synchronize()
+    packed, t_first = replay(engine, xyz_d, mask_d)
     t_end = time.perf_counter()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     print(f"engine kernel launches: {json.dumps(launches)}", flush=True)
@@ -241,7 +224,7 @@ def run_engine(dev, card: str) -> dict:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the engine")
 
-    packed = torch.cat(packed).cpu().numpy()
+    packed = packed.cpu().numpy()
     if packed.shape != (N_SWEEPS, 29) or not np.isfinite(packed).all():
         raise AssertionError("engine outputs not finite or of the wrong shape")
     counters = packed[:, 20:28]
@@ -262,13 +245,11 @@ def run_engine(dev, card: str) -> dict:
 
 
 def main() -> int:
-    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from loam_velodyne_torch.ops import cuda_lib
 
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, CUDA "

@@ -12,6 +12,8 @@ Pallas kernel of the JAX package has a hand-written CUDA counterpart in
 - K4 ``ops/knn_kernel.py``: windowed 5-NN for the map fits.
 
 A kernel wrapper runs the plain version for CPU tensors and launches its
-kernel for CUDA tensors. The configuration dataclasses are the JAX
-package's ``loam_velodyne_tpu.config`` (it does not import JAX).
+kernel for CUDA tensors. The package stands alone: its configuration
+(``config.py``), trajectory metric (``eval/metrics.py``) and sweep
+simulator (``io/synthetic.py``) are its own copies of the JAX
+package's, pinned equal to them by tests/test_torch_config.py.
 """

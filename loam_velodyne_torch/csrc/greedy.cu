@@ -1,7 +1,7 @@
 // K2: greedy suppressed feature pick, one (ring, region) window per row.
 //
 // Replaces loam_velodyne_tpu/ops/pallas_greedy.py:greedy_pick_rows
-// (_greedy_kernel). For k = 0 .. n_steps-1, in order: candidate
+// (_greedy_kernel). For k = 0 .. K-1, in order: candidate
 // idx = cand_idx[row, k] is eligible if cand_ok, not yet picked, its
 // curvature passes the threshold (> for corners, < for flats) and the
 // row's quota is not reached; an eligible pick is labelled (corners: 2
@@ -24,7 +24,7 @@ __global__ void greedy_pick_kernel(const float* __restrict__ curv,
                                    const int* __restrict__ right,
                                    int* __restrict__ labels,
                                    bool* __restrict__ marks,
-                                   int w, int k_cap, int n_steps,
+                                   int w, int k_cap,
                                    float threshold, int quota,
                                    int sharp_quota, int is_corner) {
     extern __shared__ int smem[];
@@ -47,7 +47,7 @@ __global__ void greedy_pick_kernel(const float* __restrict__ curv,
     __syncthreads();
 
     int n_picked = 0;                       // meaningful in thread 0 only
-    for (int k = 0; k < n_steps; ++k) {
+    for (int k = 0; k < k_cap; ++k) {
         if (threadIdx.x == 0) {
             const int idx = cand_idx[(size_t)row * k_cap + k];
             int lo = 1, hi = 0;             // empty span
@@ -87,7 +87,7 @@ extern "C" int loam_greedy_pick_rows(const float* curv, const int* cand_idx,
                                      const bool* cand_ok, const bool* picked0,
                                      const int* left, const int* right,
                                      int* labels, bool* marks, int rows,
-                                     int w, int k_cap, int n_steps,
+                                     int w, int k_cap,
                                      float threshold, int quota,
                                      int sharp_quota, int is_corner,
                                      cudaStream_t stream) {
@@ -100,6 +100,6 @@ extern "C" int loam_greedy_pick_rows(const float* curv, const int* cand_idx,
     }
     greedy_pick_kernel<<<rows, 128, smem, stream>>>(
         curv, cand_idx, cand_ok, picked0, left, right, labels, marks, w,
-        k_cap, n_steps, threshold, quota, sharp_quota, is_corner);
+        k_cap, threshold, quota, sharp_quota, is_corner);
     return (int)cudaGetLastError();
 }

@@ -1,24 +1,25 @@
-// K4: exact top-k per query against its group's window of the
+// K4: exact top-5 per query against its group's window of the
 // axis-sorted map cloud.
 //
 // Replaces loam_velodyne_tpu/ops/pallas_knn.py:grouped_window_knn
-// (_knn_kernel). For group t, query g: the k smallest squared
+// (_knn_kernel). For group t, query g: the K = 5 smallest squared
 // distances (difference form, (dx*dx + dy*dy) + dz*dz in float32 with
 // -fmad=false) to the W window points, ascending, with their window
 // columns; ties go to the lower column.
 //
 // Bound by the distance arithmetic (G x W per group, 16 or 32 groups
 // of 128 x 1024 at VLP-16) and by the per-query insertion into the
-// top-k list. One block per group: the window (W x 3 floats, 12 KB at
+// top-5 list. One block per group: the window (W x 3 floats, 12 KB at
 // W = 1024) is staged once in shared memory and read by all 128 query
-// threads as broadcasts; each thread keeps a sorted top-k list in
-// registers (k is a template parameter so the list unrolls), inserting
+// threads as broadcasts; each thread keeps a sorted top-5 list in
+// registers (K is a compile-time constant so the list unrolls), inserting
 // with a strict '<' while scanning columns in ascending order, so the
 // lower column wins a tie.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-template <int K>
+constexpr int K = 5;   // the mapping fits use 5 neighbours
+
 __global__ void knn_kernel(const float* __restrict__ qg,
                            const float* __restrict__ win,
                            float* __restrict__ out_d2,
@@ -65,34 +66,18 @@ __global__ void knn_kernel(const float* __restrict__ qg,
     }
 }
 
-template <int K>
-static int launch_knn(const float* qg, const float* win, float* d2, int* col,
-                      int t, int g, int w, cudaStream_t stream) {
+extern "C" int loam_grouped_window_knn(const float* qg, const float* win,
+                                       float* d2, int* col, int t, int g,
+                                       int w, cudaStream_t stream) {
+    if (t == 0 || g == 0) return 0;
     const size_t smem = (size_t)3 * w * sizeof(float);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            knn_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     const int threads = g < 128 ? ((g + 31) / 32) * 32 : 128;
-    knn_kernel<K><<<t, threads, smem, stream>>>(qg, win, d2, col, g, w);
+    knn_kernel<<<t, threads, smem, stream>>>(qg, win, d2, col, g, w);
     return (int)cudaGetLastError();
-}
-
-extern "C" int loam_grouped_window_knn(const float* qg, const float* win,
-                                       float* d2, int* col, int t, int g,
-                                       int w, int k, cudaStream_t stream) {
-    if (t == 0 || g == 0) return 0;
-    switch (k) {
-        case 1: return launch_knn<1>(qg, win, d2, col, t, g, w, stream);
-        case 2: return launch_knn<2>(qg, win, d2, col, t, g, w, stream);
-        case 3: return launch_knn<3>(qg, win, d2, col, t, g, w, stream);
-        case 4: return launch_knn<4>(qg, win, d2, col, t, g, w, stream);
-        case 5: return launch_knn<5>(qg, win, d2, col, t, g, w, stream);
-        case 6: return launch_knn<6>(qg, win, d2, col, t, g, w, stream);
-        case 7: return launch_knn<7>(qg, win, d2, col, t, g, w, stream);
-        case 8: return launch_knn<8>(qg, win, d2, col, t, g, w, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
 }

@@ -19,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from loam_velodyne_tpu.config import LoamConfig
+from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import fusion as fusion_mod
 from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
-from loam_velodyne_tpu.config import LoamConfig, MappingConfig
+from loam_velodyne_torch.config import LoamConfig, MappingConfig
 from loam_velodyne_torch.models.odometry import degeneracy_projector, solve_gn
 from loam_velodyne_torch.ops import fit
 from loam_velodyne_torch.ops.features import top_k

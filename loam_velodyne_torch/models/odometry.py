@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.func import grad, vmap
 
-from loam_velodyne_tpu.config import LoamConfig
+from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.ops.features import SweepFeatures
 from loam_velodyne_torch.ops.neighbors import (corner_correspondences_fused,
                                                surf_correspondences_fused)

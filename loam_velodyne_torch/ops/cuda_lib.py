@@ -39,10 +39,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "loam_grid_windows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "loam_greedy_pick_rows": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                              _I, _I, _I, _F, _I, _I, _I, _P],
     "loam_corresp": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _F, _I, _P],
-    "loam_grouped_window_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "loam_grouped_window_knn": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from loam_velodyne_tpu.config import Capacities, RegistrationConfig
+from loam_velodyne_torch.config import Capacities, RegistrationConfig
 from loam_velodyne_torch.ops.greedy_kernel import greedy_pick_rows
 from loam_velodyne_torch.ops.voxel import voxel_downsample
 from loam_velodyne_torch.types import PointSet, RingGrid

@@ -25,8 +25,8 @@ LABEL_FLAT = -1
 
 def greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0, left_ext,
                            right_ext, threshold: float, quota: int,
-                           sharp_quota: int, is_corner: bool,
-                           n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                           sharp_quota: int, is_corner: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel (same loop, vectorized over rows)."""
     rows, w = curv.shape
     dev = curv.device
@@ -34,7 +34,7 @@ def greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0, left_ext,
     picked = picked0.clone()
     labels = torch.zeros((rows, w), dtype=torch.int32, device=dev)
     n_picked = torch.zeros((rows,), dtype=torch.int32, device=dev)
-    for k in range(n_steps):
+    for k in range(cand_idx.shape[1]):
         idx = cand_idx[:, k:k + 1].long()                      # (rows, 1)
         c_i = curv.gather(1, idx)[:, 0]
         passes = c_i > threshold if is_corner else c_i < threshold
@@ -58,15 +58,13 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
                      cand_ok: torch.Tensor, picked0: torch.Tensor,
                      left_ext: torch.Tensor, right_ext: torch.Tensor,
                      threshold: float, quota: int, sharp_quota: int,
-                     is_corner: bool, n_steps: int | None = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     is_corner: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """curv (rows, W) float32; cand_idx (rows, K) int32 in [0, W);
     cand_ok (rows, K) bool; picked0 (rows, W) bool; left/right (rows, W)
-    int32. Runs the first n_steps (default K) candidate steps. Returns
-    (labels (rows, W) int32, new marks (rows, W) bool)."""
+    int32. Runs the K candidate steps in order. Returns (labels (rows, W)
+    int32, new marks (rows, W) bool)."""
     rows, w = curv.shape
     k_cap = cand_idx.shape[1]
-    steps = k_cap if n_steps is None else min(n_steps, k_cap)
     if (cand_ok.shape != cand_idx.shape or picked0.shape != curv.shape
             or left_ext.shape != curv.shape or right_ext.shape != curv.shape
             or cand_idx.shape[0] != rows):
@@ -78,14 +76,14 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
     if curv.device.type == "cpu":
         return greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0,
                                       left_ext, right_ext, threshold, quota,
-                                      sharp_quota, is_corner, steps)
+                                      sharp_quota, is_corner)
     args = (curv, cand_idx, cand_ok, picked0, left_ext, right_ext)
     cuda_lib.check_cuda("greedy_pick_rows", *args)
     labels = torch.empty((rows, w), dtype=torch.int32, device=curv.device)
     marks = torch.empty((rows, w), dtype=torch.bool, device=curv.device)
     cuda_lib.launch("loam_greedy_pick_rows", curv.device,
                     *(a.data_ptr() for a in args), labels.data_ptr(),
-                    marks.data_ptr(), rows, w, k_cap, steps, float(threshold),
+                    marks.data_ptr(), rows, w, k_cap, float(threshold),
                     quota, sharp_quota, int(is_corner))
     greedy_pick_rows.launches += 1
     return labels, marks

@@ -1,16 +1,17 @@
-"""K4: exact top-k per query against its group's window (mapping 5-NN).
+"""K4: exact top-5 per query against its group's window (mapping 5-NN).
 
 Replaces ``loam_velodyne_tpu/ops/pallas_knn.py:grouped_window_knn``
 (``_knn_kernel``). Queries come in T groups of G, each group with its
 own contiguous window of W rows of the axis-sorted map cloud; for every
-query the k smallest squared distances (difference form, float32) come
+query the 5 smallest squared distances (difference form, float32) come
 back ascending with their window columns, ties to the lower column.
 Distances must be finite (padding rows sit at the far sentinel).
 
-On the card it is bound by the G x W distance arithmetic and the top-k
+On the card it is bound by the G x W distance arithmetic and the top-5
 insertion; the kernel (``csrc/knn.cu``) stages each window once in
-shared memory, one block per group, and keeps every query's top-k list
-in registers.
+shared memory, one block per group, and keeps every query's top-5 list
+in registers. The kernel is built for k = 5, the only k the mapping
+fits use; the wrapper refuses any other.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def grouped_window_knn(q_groups: torch.Tensor, windows: torch.Tensor,
         raise ValueError("grouped_window_knn: expected (T, G, 3), (T, W, 3)")
     if q_groups.dtype != torch.float32 or windows.dtype != torch.float32:
         raise TypeError("grouped_window_knn: float32 inputs expected")
-    if not 1 <= k <= min(8, windows.shape[1]):
-        raise ValueError("grouped_window_knn: need 1 <= k <= min(8, W)")
+    if k != 5 or windows.shape[1] < 5:
+        raise ValueError("grouped_window_knn: k must be 5, with W >= 5")
     if q_groups.device.type == "cpu":
         return grouped_window_knn_plain(q_groups, windows, k)
     cuda_lib.check_cuda("grouped_window_knn", q_groups, windows)
@@ -55,7 +56,7 @@ def grouped_window_knn(q_groups: torch.Tensor, windows: torch.Tensor,
     cols = torch.empty((t, g, k), dtype=torch.int32, device=q_groups.device)
     cuda_lib.launch("loam_grouped_window_knn", q_groups.device,
                     q_groups.data_ptr(), windows.data_ptr(), d2.data_ptr(),
-                    cols.data_ptr(), t, g, w, k)
+                    cols.data_ptr(), t, g, w)
     grouped_window_knn.launches += 1
     return d2, cols
 

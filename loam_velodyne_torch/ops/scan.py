@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from loam_velodyne_tpu.config import LidarConfig, RegistrationConfig
+from loam_velodyne_torch.config import LidarConfig, RegistrationConfig
 from loam_velodyne_torch.ops.grid_kernel import grid_windows
 from loam_velodyne_torch.types import PointSet, RingGrid
 

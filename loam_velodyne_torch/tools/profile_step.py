@@ -1,0 +1,190 @@
+"""Where the time of the sweep step goes on one CUDA card.
+
+Replays the benchmark sequence through the VLP-16 preset at datasheet
+capacities (as ``chip_smoke.py`` does) and measures, in one process:
+
+- stage times of one odometry-only sweep and one mapping sweep (ingest,
+  features, odometry, mapping; host clock between device syncs);
+- one chunk of sweeps without the profiler (host clock, ms/sweep), then
+  the same chunk again from the same state under ``torch.profiler``:
+  kernel launches, host-device syncs, the summed duration of the
+  device's kernels and copies, their union on the device timeline (busy
+  time), and the busy share of the profiled and of the unprofiled wall
+  time;
+- one call of the odometry Jacobian (``vmap(grad)``) at 512 points.
+
+Prints one JSON object as its last line of output.
+
+    python3 -m loam_velodyne_torch.tools.profile_step
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from loam_velodyne_torch.config import LoamConfig
+from loam_velodyne_torch.io import synthetic
+from loam_velodyne_torch.models import engine as engine_mod
+from loam_velodyne_torch.models import mapping as mapping_mod
+from loam_velodyne_torch.models import odometry as odometry_mod
+from loam_velodyne_torch.ops import scan as scan_mod
+from loam_velodyne_torch.ops.features import extract_features
+
+CHUNK = 8
+SWEEP_CAP = 32768
+_LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+
+
+def _clone(tree):
+    """Deep copy of a NamedTuple tree of tensors."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone(x) for x in tree))
+    return tree.clone()
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def stage_times(state, raw, cfg: LoamConfig, mapping: bool) -> dict:
+    """Milliseconds of each stage of one sweep, synced between stages."""
+    dev = raw.xyz.device
+    marks = [time.perf_counter()]
+
+    def mark():
+        _sync(dev)
+        marks.append(time.perf_counter())
+
+    grid, _ = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration)
+    mark()
+    feats = extract_features(grid, cfg.registration, cfg.capacities)
+    mark()
+    _, oouts = odometry_mod.step(state.odometry, feats, cfg, True)
+    mark()
+    names = ["ingest", "features", "odometry"]
+    if mapping:
+        mapping_mod.step(state.mapping, oouts.transform_sum,
+                         oouts.corner_cloud, oouts.surf_cloud, cfg)
+        mark()
+        names.append("mapping")
+    return {n: 1e3 * (b - a) for n, a, b in zip(names, marks, marks[1:])}
+
+
+def device_activity(prof) -> dict:
+    """Kernel and copy intervals on the device timeline: their count,
+    summed duration and union (ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total = sum(b - a for a, b in spans)
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in spans:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        busy += cur_b - cur_a
+    return {"device_events": len(spans), "device_sum_ms": total / 1e3,
+            "device_busy_ms": busy / 1e3}
+
+
+def profile_chunk(engine, xyz, mask) -> dict:
+    """The chunk once without and once with the profiler, from one state."""
+    dev = engine.device
+    state0, sweep0 = _clone(engine.state), engine.sweep
+    _sync(dev)
+    t0 = time.perf_counter()
+    engine.run_chunk(xyz, mask)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+
+    engine.state, engine.sweep = state0, sweep0
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.run_chunk(xyz, mask)
+        _sync(dev)
+        prof_s = time.perf_counter() - t0
+    rows = prof.key_averages()
+    n = xyz.shape[0]
+    out = {
+        "sweeps": n,
+        "unprofiled_ms_per_sweep": 1e3 * plain_s / n,
+        "profiled_ms_per_sweep": 1e3 * prof_s / n,
+        "launches": sum(r.count for r in rows if r.key in _LAUNCH_APIS),
+        "syncs": {r.key: r.count for r in rows
+                  if "Synchronize" in r.key or r.key.startswith("cudaMemcpy")},
+        # Summing self device time over every row counts each kernel
+        # twice: in its own row and in the operator that launched it.
+        "self_device_ms_all_rows": sum(r.self_device_time_total
+                                       for r in rows) / 1e3,
+        "top_host_ops": [
+            {"op": r.key, "count": r.count, "self_cpu_ms": r.self_cpu_time_total / 1e3}
+            for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:12]],
+    }
+    out.update(device_activity(prof))
+    out["busy_share_of_profiled_wall"] = out["device_busy_ms"] / (1e3 * prof_s)
+    out["busy_share_of_unprofiled_wall"] = out["device_busy_ms"] / (1e3 * plain_s)
+    return out
+
+
+def jacobian_ms(dev: torch.device, n: int = 512, reps: int = 20) -> float:
+    gen = torch.Generator().manual_seed(0)
+    tf = torch.zeros(6, device=dev)
+    pts = torch.randn(n, 3, generator=gen).to(dev)
+    coeff = torch.randn(n, 3, generator=gen).to(dev)
+    odometry_mod._jacobian_rows(tf, pts, coeff)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        odometry_mod._jacobian_rows(tf, pts, coeff)
+    _sync(dev)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def run(dev: torch.device, cfg: LoamConfig, cap: int) -> dict:
+    """Warm up on one chunk, time the stages of the next two sweeps, then
+    profile the chunk that follows the warm-up."""
+    xyz, mask, _ = synthetic.bench_sequence(2 * CHUNK, cfg.lidar, cap)
+    xyz = torch.from_numpy(xyz).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    engine = engine_mod.Engine(cfg, dev)
+    engine.run_chunk(xyz[:CHUNK], mask[:CHUNK])
+    stages = {}
+    for i, kind in ((CHUNK, "odometry_only"), (CHUNK + 1, "mapping")):
+        raw = scan_mod.RawSweep(xyz=xyz[i], mask=mask[i])
+        for _ in range(2):                    # the first call warms up
+            stages[kind] = stage_times(_clone(engine.state), raw, cfg,
+                                       kind == "mapping")
+    out = {"stages_ms": stages}
+    out["chunk"] = profile_chunk(engine, xyz[CHUNK:], mask[CHUNK:])
+    out["jacobian_512_ms"] = jacobian_ms(dev)
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    result = {"card": card, "torch": torch.__version__}
+    result.update(run(torch.device("cuda:0"), LoamConfig.preset("VLP-16"),
+                      SWEEP_CAP))
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -73,7 +73,7 @@ def test_greedy_pick_rows(corner, no_candidates):
             torch.isfinite(top[:, :steps]).contiguous(), picked0, left, right,
             0.1, quota, sharp, corner)
     _equal(greedy_kernel.greedy_pick_rows(*args),
-           greedy_kernel.greedy_pick_rows_plain(*args, steps))
+           greedy_kernel.greedy_pick_rows_plain(*args))
 
 
 @pytest.mark.parametrize("surf,nq,m,frac", [

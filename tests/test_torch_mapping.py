@@ -43,6 +43,7 @@ from loam_velodyne_tpu.ops import neighbors as jnb
 from loam_velodyne_tpu.ops import scan as jscan
 from loam_velodyne_tpu.ops.pallas_knn import grouped_window_knn as pallas_knn
 from loam_velodyne_tpu.parallel.replay import tiny_config
+from loam_velodyne_torch.config import LoamConfig as TLoamConfig
 from loam_velodyne_torch.models import mapping as tmap
 from loam_velodyne_torch.ops import fit as tfit
 from loam_velodyne_torch.ops import knn_kernel
@@ -210,7 +211,8 @@ def _run_torch(cfg, state, inp):
     state_t = state_from_numpy(tmap.MappingState, state, "cpu")
     pose, corner, surf = inp
     return tmap.step(state_t, _t(pose), PointSet(*map(_t, corner)),
-                     PointSet(*map(_t, surf)), cfg)
+                     PointSet(*map(_t, surf)),
+                     TLoamConfig.from_dict(dataclasses.asdict(cfg)))
 
 
 def test_mapping_step_pose_matches_jax(mapping_frames):

@@ -31,6 +31,7 @@ from loam_velodyne_tpu.ops import scan as jscan
 from loam_velodyne_tpu.ops.pallas_corresp import _corresp_call
 from loam_velodyne_tpu.parallel.replay import tiny_config
 from loam_velodyne_tpu.types import PointSet as JPointSet
+from loam_velodyne_torch.config import LoamConfig as TLoamConfig
 from loam_velodyne_torch.models import odometry as todo
 from loam_velodyne_torch.ops import corresp_kernel
 from loam_velodyne_torch.ops import features as tfeat
@@ -162,7 +163,8 @@ def test_odometry_step_matches_jax():
     want_state, want = step(state, fj[2])
 
     state_t = state_from_numpy(todo.OdometryState, jax.device_get(state), "cpu")
-    got_state, got = todo.step(state_t, _features_t(jax.device_get(fj[2])), cfg,
+    got_state, got = todo.step(state_t, _features_t(jax.device_get(fj[2])),
+                               TLoamConfig.from_dict(dataclasses.asdict(cfg)),
                                initialized=True)
     np.testing.assert_allclose(got.transform_sum.numpy(),
                                np.asarray(want.transform_sum), rtol=0, atol=1e-4)
@@ -175,7 +177,7 @@ def test_odometry_step_matches_jax():
 
 
 def test_odometry_first_sweep_adopts_clouds():
-    cfg = small_config()
+    cfg = TLoamConfig.from_dict(dataclasses.asdict(small_config()))
     state = todo.OdometryState.create(cfg, "cpu")
     feats = tfeat.SweepFeatures(*(PointSet.empty(n, "cpu") for n in (
         cfg.capacities.sharp, cfg.capacities.less_sharp, cfg.capacities.flat,
