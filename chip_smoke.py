@@ -1,17 +1,21 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
 Builds the four CUDA kernels of ``loam_velodyne_torch`` from the sources
-in this checkout, compares each with its plain PyTorch version at the
-VLP-16 main-path shapes, then replays the 48-sweep synthetic benchmark
-sequence (noisy turning trajectory) through the engine's static-cadence
-chunks on ``cuda:0`` and checks the trajectory and telemetry. It
+in this checkout, compares each with its plain PyTorch version at every
+VLP-16 main-path shape and times it there (the wrapper, the launch
+alone, the plain version, a library call where one computes the same
+function, and the bound from ``loam_velodyne_torch/tools/kernel_times.py``),
+then replays the 48-sweep synthetic benchmark sequence (noisy turning
+trajectory) through the engine's static-cadence chunks on ``cuda:0`` and
+checks the trajectory, the telemetry and each kernel's launch count. It
 imports only ``loam_velodyne_torch`` (never JAX or the JAX package).
 
 Run from the repository root:  python3 chip_smoke.py
 Every failure raises (non-zero exit). The last line of standard output
 is ``{"ok": true, "device": {...}}``; the line before it is the card's
 ``name, power.limit``, and before that one JSON object with each
-kernel's launches, error and times.
+kernel's launches, error, times and bound, the heaviest main-path case
+at the top level and every case under ``cases``.
 """
 
 from __future__ import annotations
@@ -30,19 +34,13 @@ from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.models.engine import Engine
 from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, greedy_kernel,
                                      grid_kernel, knn_kernel)
+from loam_velodyne_torch.tools import kernel_times
 
 SEED = 0
 N_SWEEPS = 48
 CHUNK = 8
 SWEEP_CAP = 32768
 ATE_GATE_M = 0.05
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _nvcc_version() -> str:
@@ -68,19 +66,6 @@ def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor):
             t_first = time.perf_counter()
     _sync(engine.device)
     return torch.cat(packed), t_first
-
-
-def _time_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _max_abs_err(a, b) -> float:
@@ -110,94 +95,120 @@ def _require_equal(name: str, got, want) -> float:
     return err
 
 
-def check_kernels(dev) -> list[dict]:
-    """Each kernel against its plain version on the card, at VLP-16
-    main-path shapes, inputs from a numpy seed."""
-    rng = np.random.default_rng(SEED)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    rows = []
+# name -> (wrapper, plain version, source, the TPU kernel it replaces,
+# its main-path cases, the case whose numbers head its row)
+KERNELS = {
+    "grid_windows": (
+        grid_kernel.grid_windows, grid_kernel.grid_windows_plain,
+        "loam_velodyne_torch/csrc/grid.cu",
+        "loam_velodyne_tpu/ops/pallas_grid.py:56", ("grid",), "grid"),
+    "greedy_pick_rows": (
+        greedy_kernel.greedy_pick_rows, greedy_kernel.greedy_pick_rows_plain,
+        "loam_velodyne_torch/csrc/greedy.cu",
+        "loam_velodyne_tpu/ops/pallas_greedy.py:90",
+        ("greedy_corner", "greedy_flat"), "greedy_corner"),
+    "corresp_search": (
+        corresp_kernel.corresp_search, corresp_kernel.corresp_search_plain,
+        "loam_velodyne_torch/csrc/corresp.cu",
+        "loam_velodyne_tpu/ops/pallas_corresp.py:137",
+        ("corresp_corner", "corresp_surf"), "corresp_surf"),
+    "grouped_window_knn": (
+        knn_kernel.grouped_window_knn, knn_kernel.grouped_window_knn_plain,
+        "loam_velodyne_torch/csrc/knn.cu",
+        "loam_velodyne_tpu/ops/pallas_knn.py:59",
+        ("knn_corner", "knn_surf"), "knn_surf"),
+}
+# Launches of each kernel in the 48-sweep replay: K1 once and K2 twice
+# per sweep, K3 10 times per odometry sweep (47), K4 10 times per
+# mapping frame (24).
+EXPECTED_LAUNCHES = {"grid_windows": 48, "greedy_pick_rows": 96,
+                     "corresp_search": 470, "grouped_window_knn": 240}
 
-    def record(name, source, replaces, err, k_fn, p_fn):
-        ms_k = _time_ms(k_fn)
-        ms_p = _time_ms(p_fn)
-        ms_k = min(ms_k, _time_ms(k_fn))      # plain, kernel, kernel order
+
+def _raw_call(case: str, args: tuple):
+    """The kernel's launch alone, into outputs allocated once here."""
+    dev = args[0].device
+    if case == "grid":
+        cols, starts, p = args
+        out = torch.empty((starts.shape[0], cols.shape[0], p), device=dev)
+        return lambda: grid_kernel.grid_windows_into(cols, starts, out)
+    if case.startswith("greedy"):
+        labels = torch.empty(args[0].shape, dtype=torch.int32, device=dev)
+        marks = torch.empty(args[0].shape, dtype=torch.bool, device=dev)
+        return lambda: greedy_kernel.greedy_pick_rows_into(*args, labels, marks)
+    if case.startswith("corresp"):
+        nq = args[0].shape[0]
+        keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)
+        out = tuple(torch.empty(nq, dtype=dt, device=dev)
+                    for dt in (torch.int32, torch.float32) * 3)
+        return lambda: corresp_kernel.corresp_search_into(*args, keys, out)
+    qg, win, k = args
+    d2 = torch.empty(qg.shape[:2] + (k,), device=dev)
+    cols = torch.empty(qg.shape[:2] + (k,), dtype=torch.int32, device=dev)
+    return lambda: knn_kernel.grouped_window_knn_into(qg, win, d2, cols)
+
+
+def _library_call(case: str, args: tuple):
+    """One PyTorch call that computes the same function (timed as a
+    yardstick, never called by the port), or None where there is none."""
+    if case == "grid":
+        cols, starts, p = args
+        return lambda: torch.index_select(cols.unfold(1, p, 1), 1, starts)
+    return None
+
+
+def check_kernels(dev) -> list[dict]:
+    """Each kernel against its plain version on the card at every
+    main-path shape (inputs from a numpy seed), then timed: the wrapper
+    (``ms``) and the launch alone into preallocated outputs
+    (``kernel_ms``), both by CUDA events around back-to-back calls; the
+    host's time to enqueue a wrapper call (``host_ms``); the wrapper's
+    device time and operations per call (``device_ms``, from the
+    profiler); the plain version and the library call; beside the
+    bound computed from the same inputs."""
+    inputs = kernel_times.main_path_inputs(dev, SEED)
+    rows = []
+    for name, (wrapper, plain, source, replaces, cases, head) in KERNELS.items():
+        per_case, err = {}, 0.0
+        for case in cases:
+            args = inputs[case]
+            got = wrapper(*args)
+            want = plain(*args)
+            got, want = ((got,), (want,)) if name == "grid_windows" else (got, want)
+            err = max(err, _require_equal(f"{name} {case}", got, want))
+            k_fn, r_fn, l_fn = (lambda: wrapper(*args)), _raw_call(case, args), \
+                _library_call(case, args)
+            if l_fn is not None:
+                _require_equal(f"{name} {case} library call",
+                               (l_fn().permute(1, 0, 2),), got)
+            ms = kernel_times.time_ms(k_fn)
+            kernel_ms = kernel_times.time_ms(r_fn)
+            plain_ms = kernel_times.time_ms(lambda: plain(*args))
+            library_ms = None if l_fn is None else kernel_times.time_ms(l_fn)
+            kernel_ms = min(kernel_ms, kernel_times.time_ms(r_fn))
+            ms = min(ms, kernel_times.time_ms(k_fn))
+            per_case[case] = {
+                "shapes": [list(a.shape) for a in args
+                           if isinstance(a, torch.Tensor)],
+                "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "host_ms": kernel_times.host_ms(k_fn),
+                **kernel_times.device_profile(k_fn),
+                **kernel_times.bound(case, args)}
+            c = per_case[case]
+            print(f"kernel {name} {case}: exact match; wrapper {ms:.4f} ms, "
+                  f"launch {kernel_ms:.4f} ms, host {c['host_ms']:.4f} ms, "
+                  f"on the device "
+                  f"{c['device_ms']:.4f} ms in {c['device_ops_per_call']:g} "
+                  f"operations, plain {plain_ms:.4f} ms, library "
+                  f"{library_ms}, bound {c['bound_ms']:.6f} ms "
+                  f"({c['bound_by']})", flush=True)
+        h = per_case[head]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": err,
-                     "ms": ms_k, "plain_ms": ms_p})
-        print(f"kernel {name}: exact match, {ms_k:.4f} ms vs plain "
-              f"{ms_p:.4f} ms", flush=True)
-
-    # K1: 16 rings x 4 columns x P=2048 windows of a 32768-row sweep.
-    n, p, r = SWEEP_CAP, 2048, 16
-    cols = t(rng.normal(size=(4, n + p)).astype(np.float32))
-    starts = np.sort(rng.integers(0, n, size=r)).astype(np.int32)
-    starts[0], starts[-1] = 0, n
-    starts = t(starts)
-    got = grid_kernel.grid_windows(cols, starts, p)
-    want = grid_kernel.grid_windows_plain(cols, starts, p)
-    err = _require_equal("grid_windows", [got], [want])
-    record("grid_windows", "loam_velodyne_torch/csrc/grid.cu",
-           "loam_velodyne_tpu/ops/pallas_grid.py:56", err,
-           lambda: grid_kernel.grid_windows(cols, starts, p),
-           lambda: grid_kernel.grid_windows_plain(cols, starts, p))
-
-    # K2: 96 (ring, region) rows x W=384, corner (96 steps) and flat (64).
-    rows_n, w = 96, 384
-    curv = t(rng.exponential(0.1, size=(rows_n, w)).astype(np.float32))
-    picked0 = t(rng.random((rows_n, w)) < 0.1)
-    left = t(rng.integers(0, 6, size=(rows_n, w)).astype(np.int32))
-    right = t(rng.integers(0, 6, size=(rows_n, w)).astype(np.int32))
-    in_region = t(rng.random((rows_n, w)) < 0.9)
-    err = 0.0
-    for corner, steps, quota, sharp in ((True, 96, 20, 2), (False, 64, 4, 0)):
-        scores = torch.where(in_region & ~picked0, curv if corner else -curv,
-                             float("-inf"))
-        top, cand = torch.sort(scores, dim=1, descending=True, stable=True)
-        cand = cand[:, :steps].to(torch.int32).contiguous()
-        ok = torch.isfinite(top[:, :steps]).contiguous()
-        args = (curv, cand, ok, picked0, left, right, 0.1, quota, sharp, corner)
-        got = greedy_kernel.greedy_pick_rows(*args)
-        want = greedy_kernel.greedy_pick_rows_plain(*args)
-        err = max(err, _require_equal("greedy_pick_rows", got, want))
-    record("greedy_pick_rows", "loam_velodyne_torch/csrc/greedy.cu",
-           "loam_velodyne_tpu/ops/pallas_greedy.py:90", err,
-           lambda: greedy_kernel.greedy_pick_rows(*args),
-           lambda: greedy_kernel.greedy_pick_rows_plain(*args))
-
-    # K3: corner (256 vs 2048) and surf (512 vs 8192) searches.
-    err = 0.0
-    for surf, nq, m in ((False, 256, 2048), (True, 512, 8192)):
-        q = t((rng.normal(size=(nq, 3)) * 5).astype(np.float32))
-        ref = t((rng.normal(size=(m, 3)) * 5).astype(np.float32))
-        ring = t(rng.integers(0, 16, size=m).astype(np.int32))
-        mask = rng.random(m) < 0.8
-        mask[m // 2:] = False                      # padded tail, as in use
-        mask = t(mask)
-        got = corresp_kernel.corresp_search(q, ref, ring, mask, 2.5, surf)
-        want = corresp_kernel.corresp_search_plain(q, ref, ring, mask, 2.5, surf)
-        err = max(err, _require_equal("corresp_search", got, want))
-    record("corresp_search", "loam_velodyne_torch/csrc/corresp.cu",
-           "loam_velodyne_tpu/ops/pallas_corresp.py:137", err,
-           lambda: corresp_kernel.corresp_search(q, ref, ring, mask, 2.5, True),
-           lambda: corresp_kernel.corresp_search_plain(q, ref, ring, mask, 2.5,
-                                                       True))
-
-    # K4: T=16 (corner stack 2048) and T=32 (surf stack 4096) groups of
-    # 128 queries against windows of 1024 sorted map rows.
-    err = 0.0
-    for tg in (16, 32):
-        cloud = (rng.normal(size=(tg * 1024, 3)) * 5).astype(np.float32)
-        cloud = cloud[np.argsort(cloud[:, 2], kind="stable")]
-        windows = t(cloud.reshape(tg, 1024, 3))
-        qg = t((cloud.reshape(tg, 1024, 3)[:, ::8]
-                + rng.normal(size=(tg, 128, 3)) * 0.3).astype(np.float32))
-        got = knn_kernel.grouped_window_knn(qg, windows, 5)
-        want = knn_kernel.grouped_window_knn_plain(qg, windows, 5)
-        err = max(err, _require_equal("grouped_window_knn", got, want))
-    record("grouped_window_knn", "loam_velodyne_torch/csrc/knn.cu",
-           "loam_velodyne_tpu/ops/pallas_knn.py:59", err,
-           lambda: knn_kernel.grouped_window_knn(qg, windows, 5),
-           lambda: knn_kernel.grouped_window_knn_plain(qg, windows, 5))
+                     **{k: h[k] for k in ("ms", "kernel_ms", "device_ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+                     "cases": per_case})
     return rows
 
 
@@ -220,9 +231,9 @@ def run_engine(dev, card: str) -> dict:
     t_end = time.perf_counter()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     print(f"engine kernel launches: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the engine")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{EXPECTED_LAUNCHES}")
 
     packed = packed.cpu().numpy()
     if packed.shape != (N_SWEEPS, 29) or not np.isfinite(packed).all():
@@ -251,7 +262,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = _card()
+    card = kernel_times.card()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {_nvcc_version()}", flush=True)
     t0 = time.perf_counter()
@@ -263,6 +274,7 @@ def main() -> int:
     launches = run_engine(dev, card)
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        row["launches_per_sweep"] = launches[row["name"]] / N_SWEEPS
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

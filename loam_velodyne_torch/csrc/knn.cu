@@ -7,57 +7,111 @@
 // -fmad=false) to the W window points, ascending, with their window
 // columns; ties go to the lower column.
 //
-// Bound by the distance arithmetic (G x W per group, 16 or 32 groups
-// of 128 x 1024 at VLP-16) and by the per-query insertion into the
-// top-5 list. One block per group: the window (W x 3 floats, 12 KB at
-// W = 1024) is staged once in shared memory and read by all 128 query
-// threads as broadcasts; each thread keeps a sorted top-5 list in
-// registers (K is a compile-time constant so the list unrolls), inserting
-// with a strict '<' while scanning columns in ascending order, so the
-// lower column wins a tie.
+// What bounds it on an H100 (67 TFLOP/s f32, 3.35 TB/s): at VLP-16,
+// 32 groups (surf; 16 for corner) of 128 queries x W = 1,024, 8
+// operations per distance: 33.6 MFLOP (0.50 us; 0.25 us at T = 16)
+// against 0.61 MB (0.18 us). Below one launch's latency; what costs
+// time is the serial work per query (1,024 distances and top-5
+// inserts), and with one block per group the card had 16-32 blocks.
+//
+// Design: the grid is (group) x (tiles of 8 queries); T = 32 gives 512
+// blocks of 128 threads, T = 16 gives 256. A block stages its group's
+// window once in shared memory as float4 rows (16 KB at W = 1,024).
+// Each query has S = 16 lanes of one warp; lane s scans the columns
+// s, s + S, s + 2S, ... in ascending order and keeps a sorted top-5 in
+// registers (K is a compile-time constant, so the list unrolls),
+// inserting with a strict '<' on the distance: its list is the 5
+// lexicographically smallest (d, column) pairs of its columns. The S
+// lists are merged by a butterfly of warp shuffles, each lane inserting
+// its partner's 5 pairs with a lexicographic (d, column) compare; the
+// slices are disjoint, so after log2(S) rounds every lane holds the 5
+// smallest pairs of the whole window in ascending order: the result of
+// one sequential scan, bit for bit. ptxas (sm_90a, -O3): 34 registers,
+// no spills.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-constexpr int K = 5;   // the mapping fits use 5 neighbours
+namespace {
+constexpr int K = 5;       // the mapping fits use 5 neighbours
+constexpr int kS = 16;     // lanes per query
+constexpr int kTile = 8;   // queries per block: kS * kTile = 128 threads
+
+__device__ __forceinline__ bool before(float d1, int c1, float d2, int c2) {
+    return d1 < d2 || (d1 == d2 && c1 < c2);
+}
 
 __global__ void knn_kernel(const float* __restrict__ qg,
                            const float* __restrict__ win,
                            float* __restrict__ out_d2,
                            int* __restrict__ out_col, int g, int w) {
-    extern __shared__ float s_win[];              // (W, 3)
+    extern __shared__ float4 s_win[];             // (W,) {x, y, z, 0}
     const int t = blockIdx.x;
     const float* wsrc = win + (size_t)t * w * 3;
-    for (int i = threadIdx.x; i < 3 * w; i += blockDim.x) s_win[i] = wsrc[i];
+    for (int i = threadIdx.x; i < w; i += blockDim.x) {
+        s_win[i] = make_float4(wsrc[3 * i], wsrc[3 * i + 1], wsrc[3 * i + 2],
+                               0.f);
+    }
     __syncthreads();
 
-    for (int qi = threadIdx.x; qi < g; qi += blockDim.x) {
-        const size_t qoff = ((size_t)t * g + qi);
-        const float qx = qg[3 * qoff], qy = qg[3 * qoff + 1],
-                    qz = qg[3 * qoff + 2];
-        float bd[K];
-        int bc[K];
+    const int lane = threadIdx.x % kS;
+    const int qi = blockIdx.y * kTile + threadIdx.x / kS;
+    // Lanes of a query past the group's end shadow its last query, so
+    // that every lane takes part in the shuffles; they write nothing.
+    const size_t qoff = (size_t)t * g + min(qi, g - 1);
+    const float qx = qg[3 * qoff], qy = qg[3 * qoff + 1],
+                qz = qg[3 * qoff + 2];
+    float bd[K];
+    int bc[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+        bd[i] = CUDART_INF_F;
+        bc[i] = 0;
+    }
+    for (int c = lane; c < w; c += kS) {
+        const float4 p = s_win[c];
+        const float dx = qx - p.x;
+        const float dy = qy - p.y;
+        const float dz = qz - p.z;
+        const float d = dx * dx + dy * dy + dz * dz;
+        if (d < bd[K - 1]) {
+            bd[K - 1] = d;
+            bc[K - 1] = c;
+#pragma unroll
+            for (int i = K - 1; i > 0; --i) {
+                if (bd[i] < bd[i - 1]) {
+                    const float td = bd[i]; bd[i] = bd[i - 1]; bd[i - 1] = td;
+                    const int tc = bc[i]; bc[i] = bc[i - 1]; bc[i - 1] = tc;
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int off = 1; off < kS; off <<= 1) {
+        float od[K];
+        int oc[K];
 #pragma unroll
         for (int i = 0; i < K; ++i) {
-            bd[i] = CUDART_INF_F;
-            bc[i] = 0;
+            od[i] = __shfl_xor_sync(0xffffffffu, bd[i], off);
+            oc[i] = __shfl_xor_sync(0xffffffffu, bc[i], off);
         }
-        for (int c = 0; c < w; ++c) {
-            const float dx = qx - s_win[3 * c];
-            const float dy = qy - s_win[3 * c + 1];
-            const float dz = qz - s_win[3 * c + 2];
-            const float d = dx * dx + dy * dy + dz * dz;
-            if (d < bd[K - 1]) {
-                bd[K - 1] = d;
-                bc[K - 1] = c;
+#pragma unroll
+        for (int n = 0; n < K; ++n) {
+            if (before(od[n], oc[n], bd[K - 1], bc[K - 1])) {
+                bd[K - 1] = od[n];
+                bc[K - 1] = oc[n];
 #pragma unroll
                 for (int i = K - 1; i > 0; --i) {
-                    if (bd[i] < bd[i - 1]) {
+                    if (before(bd[i], bc[i], bd[i - 1], bc[i - 1])) {
                         const float td = bd[i]; bd[i] = bd[i - 1]; bd[i - 1] = td;
                         const int tc = bc[i]; bc[i] = bc[i - 1]; bc[i - 1] = tc;
                     }
                 }
             }
         }
+    }
+
+    if (lane == 0 && qi < g) {
 #pragma unroll
         for (int i = 0; i < K; ++i) {
             out_d2[qoff * K + i] = bd[i];
@@ -65,19 +119,20 @@ __global__ void knn_kernel(const float* __restrict__ qg,
         }
     }
 }
+}  // namespace
 
 extern "C" int loam_grouped_window_knn(const float* qg, const float* win,
                                        float* d2, int* col, int t, int g,
                                        int w, cudaStream_t stream) {
     if (t == 0 || g == 0) return 0;
-    const size_t smem = (size_t)3 * w * sizeof(float);
+    const size_t smem = sizeof(float4) * w;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const int threads = g < 128 ? ((g + 31) / 32) * 32 : 128;
-    knn_kernel<<<t, threads, smem, stream>>>(qg, win, d2, col, g, w);
+    const dim3 grid(t, (g + kTile - 1) / kTile);
+    knn_kernel<<<grid, kS * kTile, smem, stream>>>(qg, win, d2, col, g, w);
     return (int)cudaGetLastError();
 }

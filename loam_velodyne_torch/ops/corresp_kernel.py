@@ -4,14 +4,20 @@ Replaces ``loam_velodyne_tpu/ops/pallas_corresp.py:_corresp_call``
 (``_corresp_kernel``). Two passes over the previous sweep's cloud:
 the nearest point j and its ring; then, in corner mode, the nearest
 point with 0 < |dring| <= bracket, and in surf mode also the nearest
-point on j's own ring other than j. Masked and padding rows sit at the
-1e8 sentinel with ring 1<<20, ties go to the first column, and a result
-at or beyond 1e12 (no real candidate) comes back as (0, inf).
+point on j's own ring other than j. Masked rows are no candidates, ties
+go to the first column, and a result at or beyond 1e12 (no real
+candidate) comes back as (0, inf). The plain version moves masked rows
+to the 1e8 sentinel with ring 1<<20 instead, which gives the same
+outputs.
 
-On the card the scan's arithmetic latency bounds it, with few queries
-(256 corner, 512 surf at VLP-16); the kernel (``csrc/corresp.cu``)
-splits each query's scan over the 8 warps of a block to get enough
-parallel work, and combines the partial minima in column order.
+At VLP-16 the search is 256 corner queries against 1,920 rows and 384
+surf queries against 8,192: arithmetic below one launch's latency on an
+H100, and too few queries for a block per query tile to fill its 132
+SMs. The kernel (``csrc/corresp.cu``) splits the reference into chunks
+across blocks (240 blocks for corner, 258 for surf) and reduces each
+query's minimum with atomicMin on a packed 64-bit (distance bits,
+column) key, exact and in any block order; masked rows are skipped in
+the kernel, so a call is one memset and three kernels.
 """
 
 from __future__ import annotations
@@ -87,6 +93,20 @@ def corresp_search_plain(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     return _normalize(_search_plain(query_xyz, ref, ring, bracket, surf_mode))
 
 
+def corresp_search_into(query: Tensor, ref: Tensor, ring: Tensor,
+                        mask: Tensor, bracket: float, surf_mode: bool,
+                        keys: Tensor, out: Tuple[Tensor, ...]) -> None:
+    """Launch the kernel on contiguous CUDA tensors: ``keys`` is int64
+    scratch of 3 * Q words, ``out`` the (j, dj, l, dl, m, dm) outputs,
+    int32 and float32 of (Q,). Counts no launch (``corresp_search``
+    does)."""
+    cuda_lib.launch("loam_corresp", query.device, query.data_ptr(),
+                    ref.data_ptr(), ring.data_ptr(), mask.data_ptr(),
+                    keys.data_ptr(), *(t.data_ptr() for t in out),
+                    query.shape[0], ref.shape[0], float(bracket),
+                    int(surf_mode))
+
+
 def corresp_search(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
                    ref_mask: Tensor, bracket: float, surf_mode: bool
                    ) -> Tuple[Tensor, ...]:
@@ -101,18 +121,16 @@ def corresp_search(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     if query_xyz.device.type == "cpu":
         return corresp_search_plain(query_xyz, ref_xyz, ref_ring, ref_mask,
                                     bracket, surf_mode)
-    query = query_xyz.contiguous()
-    ref, ring = _prepare(ref_xyz, ref_ring, ref_mask)
-    cuda_lib.check_cuda("corresp_search", query, ref, ring)
-    nq, m = query.shape[0], ref.shape[0]
-    raw = tuple(torch.empty(nq, dtype=dt, device=query.device)
+    args = tuple(t.contiguous() for t in (query_xyz, ref_xyz, ref_ring,
+                                          ref_mask))
+    cuda_lib.check_cuda("corresp_search", *args)
+    nq, dev = query_xyz.shape[0], query_xyz.device
+    out = tuple(torch.empty(nq, dtype=dt, device=dev)
                 for dt in (torch.int32, torch.float32) * 3)
-    cuda_lib.launch("loam_corresp", query.device, query.data_ptr(),
-                    ref.data_ptr(), ring.data_ptr(),
-                    *(t.data_ptr() for t in raw), nq, m, float(bracket),
-                    int(surf_mode))
+    keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)
+    corresp_search_into(*args, bracket, surf_mode, keys, out)
     corresp_search.launches += 1
-    return _normalize(raw)
+    return out
 
 
 corresp_search.launches = 0

@@ -7,11 +7,17 @@ query the 5 smallest squared distances (difference form, float32) come
 back ascending with their window columns, ties to the lower column.
 Distances must be finite (padding rows sit at the far sentinel).
 
-On the card it is bound by the G x W distance arithmetic and the top-5
-insertion; the kernel (``csrc/knn.cu``) stages each window once in
-shared memory, one block per group, and keeps every query's top-5 list
-in registers. The kernel is built for k = 5, the only k the mapping
-fits use; the wrapper refuses any other.
+At VLP-16 a call is 16 (corner) or 32 (surf) groups of 128 queries
+against windows of 1,024 rows: arithmetic below one launch's latency on
+an H100, so what costs time is each query's serial scan and top-5
+inserts, and one block per group left most of the 132 SMs idle. The
+kernel (``csrc/knn.cu``) gives each query 16 lanes of a warp, each
+scanning every 16th column of the window (staged once per block in
+shared memory) into a register top-5, then merges the 16 lists by warp
+shuffles on (distance, column), which keeps the sequential scan's
+result bit for bit; blocks of 8 queries give 512 blocks at 32 groups.
+The kernel is built for k = 5, the only k the mapping fits use; the
+wrapper refuses any other.
 """
 
 from __future__ import annotations
@@ -50,15 +56,24 @@ def grouped_window_knn(q_groups: torch.Tensor, windows: torch.Tensor,
     if q_groups.device.type == "cpu":
         return grouped_window_knn_plain(q_groups, windows, k)
     cuda_lib.check_cuda("grouped_window_knn", q_groups, windows)
-    t, g, _ = q_groups.shape
-    w = windows.shape[1]
-    d2 = torch.empty((t, g, k), dtype=torch.float32, device=q_groups.device)
-    cols = torch.empty((t, g, k), dtype=torch.int32, device=q_groups.device)
-    cuda_lib.launch("loam_grouped_window_knn", q_groups.device,
-                    q_groups.data_ptr(), windows.data_ptr(), d2.data_ptr(),
-                    cols.data_ptr(), t, g, w)
+    d2 = torch.empty(q_groups.shape[:2] + (k,), dtype=torch.float32,
+                     device=q_groups.device)
+    cols = torch.empty(q_groups.shape[:2] + (k,), dtype=torch.int32,
+                       device=q_groups.device)
+    grouped_window_knn_into(q_groups, windows, d2, cols)
     grouped_window_knn.launches += 1
     return d2, cols
+
+
+def grouped_window_knn_into(q_groups: torch.Tensor, windows: torch.Tensor,
+                            d2: torch.Tensor, cols: torch.Tensor) -> None:
+    """Launch the kernel on contiguous CUDA tensors into the (T, G, 5)
+    outputs ``d2`` (float32) and ``cols`` (int32). Counts no launch
+    (``grouped_window_knn`` does)."""
+    t, g, _ = q_groups.shape
+    cuda_lib.launch("loam_grouped_window_knn", q_groups.device,
+                    q_groups.data_ptr(), windows.data_ptr(), d2.data_ptr(),
+                    cols.data_ptr(), t, g, windows.shape[1])
 
 
 grouped_window_knn.launches = 0

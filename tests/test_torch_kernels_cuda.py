@@ -16,6 +16,8 @@ integer and float outputs must be equal.
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
                                      grid_kernel, knn_kernel)
@@ -78,7 +80,15 @@ def test_greedy_pick_rows(corner, no_candidates):
 
 @pytest.mark.parametrize("surf,nq,m,frac", [
     (False, 256, 2048, 0.8), (True, 512, 8192, 0.8), (True, 128, 1024, 1.0),
-    (False, 128, 512, 0.0)], ids=["corner", "surf", "dense", "empty_mask"])
+    (False, 128, 512, 0.0),
+    # the VLP-16 main-path shapes
+    (False, 256, 1920, 0.8), (True, 384, 8192, 0.8),
+    # ragged: neither nq nor M a multiple of the query tile or the chunk
+    (True, 130, 1000, 0.8), (False, 130, 1000, 0.8), (True, 1, 7, 1.0),
+    # every row masked at the surf width
+    (True, 384, 8192, 0.0)],
+    ids=["corner", "surf", "dense", "empty_mask", "corner_main", "surf_main",
+         "ragged_surf", "ragged_corner", "one_query", "surf_all_masked"])
 def test_corresp_search(surf, nq, m, frac):
     dev = _device()
     rng = np.random.default_rng(11)
@@ -106,6 +116,41 @@ def test_grouped_window_knn(case):
            knn_kernel.grouped_window_knn_plain(qg, win, 5))
 
 
+@pytest.mark.parametrize("t,g,w", [
+    (16, 128, 1024),   # the VLP-16 corner stack (T=16)
+    (3, 20, 1024),     # g < 32, not a multiple of the query tile
+    (5, 13, 1000),     # W not a multiple of the 16 lanes of a query
+    (2, 128, 5),       # W = k: fewer columns than lanes
+    (1, 1, 4100),      # window above 48 KB of shared memory
+])
+def test_grouped_window_knn_shapes(t, g, w):
+    dev = _device()
+    rng = np.random.default_rng(t * 1000 + g + w)
+    qg = (rng.normal(size=(t, g, 3)) * 5).astype(np.float32)
+    win = (rng.normal(size=(t, w, 3)) * 5).astype(np.float32)
+    win[:, w // 2:] = 1e8                    # padding rows at the sentinel
+    qg, win = torch.from_numpy(qg).to(dev), torch.from_numpy(win).to(dev)
+    _equal(knn_kernel.grouped_window_knn(qg, win, 5),
+           knn_kernel.grouped_window_knn_plain(qg, win, 5))
+
+
+def test_corresp_search_launches_four_device_ops():
+    """A K3 call is one memset and three kernels, nothing around them."""
+    dev = _device()
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (t((rng.normal(size=(384, 3)) * 5).astype(np.float32)),
+            t((rng.normal(size=(8192, 3)) * 5).astype(np.float32)),
+            t(rng.integers(0, 16, size=8192).astype(np.int32)),
+            t(rng.random(8192) < 0.8), 2.5, True)
+    corresp_kernel.corresp_search(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        corresp_kernel.corresp_search(*args)
+        torch.cuda.synchronize()
+    assert sum(e.device_type == DeviceType.CUDA for e in prof.events()) == 4
+
+
 def test_wrappers_count_their_launches():
     dev = _device()
     before = knn_kernel.grouped_window_knn.launches
@@ -113,4 +158,14 @@ def test_wrappers_count_their_launches():
     win = torch.ones((1, 64, 3), device=dev)
     knn_kernel.grouped_window_knn(qg, win, 5)
     knn_kernel.grouped_window_knn_plain(qg, win, 5)
+    knn_kernel.grouped_window_knn_into(qg, win, torch.empty((1, 8, 5), device=dev),
+                                       torch.empty((1, 8, 5), dtype=torch.int32,
+                                                   device=dev))
     assert knn_kernel.grouped_window_knn.launches == before + 1
+    before = corresp_kernel.corresp_search.launches
+    args = (torch.zeros((4, 3), device=dev), torch.ones((9, 3), device=dev),
+            torch.zeros(9, dtype=torch.int32, device=dev),
+            torch.ones(9, dtype=torch.bool, device=dev), 2.5, True)
+    corresp_kernel.corresp_search(*args)
+    corresp_kernel.corresp_search_plain(*args)
+    assert corresp_kernel.corresp_search.launches == before + 1

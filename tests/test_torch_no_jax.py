@@ -45,6 +45,7 @@ MODULES = [
     "loam_velodyne_torch.models.engine",
     "loam_velodyne_torch.tools",
     "loam_velodyne_torch.tools.profile_step",
+    "loam_velodyne_torch.tools.kernel_times",
     "chip_smoke",
 ]
 
