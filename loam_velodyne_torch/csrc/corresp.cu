@@ -44,7 +44,7 @@ namespace {
 typedef unsigned long long Key;
 constexpr Key kNone = ~0ull;       // no candidate; above every real key
 constexpr int kTile = 64;          // queries per block, one per thread
-constexpr int kTargetBlocks = 264; // two blocks per SM of an H100
+constexpr int kTargetBlocks = 528; // four blocks per SM of an H100
 constexpr int kMaxChunk = 2048;    // rows per block: 32 KB of float4
 constexpr float kValidD2 = 1e12f;  // every real match is closer than this
 
@@ -90,6 +90,7 @@ __global__ void nearest_kernel(const float* __restrict__ q,
     const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
     float bd = CUDART_INF_F;
     int bc = -1;
+#pragma unroll 4
     for (int i = 0; i < n; ++i) {
         const float d = sq_dist(qx, qy, qz, s_ref[i]);
         if (d < bd) {
@@ -121,6 +122,7 @@ __global__ void bracket_kernel(const float* __restrict__ q,
     const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
     float bd_l = CUDART_INF_F, bd_m = CUDART_INF_F;
     int bc_l = -1, bc_m = -1;
+#pragma unroll 4
     for (int i = 0; i < n; ++i) {
         const float4 p = s_ref[i];
         const int dring = __float_as_int(p.w) - ring_j;

@@ -22,11 +22,12 @@
 // registers (K is a compile-time constant, so the list unrolls),
 // inserting with a strict '<' on the distance: its list is the 5
 // lexicographically smallest (d, column) pairs of its columns. The S
-// lists are merged by a butterfly of warp shuffles, each lane inserting
-// its partner's 5 pairs with a lexicographic (d, column) compare; the
-// slices are disjoint, so after log2(S) rounds every lane holds the 5
-// smallest pairs of the whole window in ascending order: the result of
-// one sequential scan, bit for bit. ptxas (sm_90a, -O3): 34 registers,
+// lists are merged by a butterfly of warp shuffles: each lane keeps the
+// 5 least of its and its partner's list, compared lexicographically on
+// (d, column), and sorts them; the slices are disjoint, so after
+// log2(S) rounds every lane holds the 5 smallest pairs of the whole
+// window in ascending order: the result of one sequential scan, bit for
+// bit. ptxas (sm_90a, -O3): 34 registers,
 // no spills.
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -38,6 +39,14 @@ constexpr int kTile = 8;   // queries per block: kS * kTile = 128 threads
 
 __device__ __forceinline__ bool before(float d1, int c1, float d2, int c2) {
     return d1 < d2 || (d1 == d2 && c1 < c2);
+}
+
+// Puts entries a and b in lexicographic (d, column) order.
+__device__ __forceinline__ void exchange(float* d, int* c, int a, int b) {
+    if (before(d[b], c[b], d[a], c[a])) {
+        const float td = d[a]; d[a] = d[b]; d[b] = td;
+        const int tc = c[a]; c[a] = c[b]; c[b] = tc;
+    }
 }
 
 __global__ void knn_kernel(const float* __restrict__ qg,
@@ -86,6 +95,9 @@ __global__ void knn_kernel(const float* __restrict__ qg,
         }
     }
 
+    // Merge with the partner lane's list: entry i against the partner's
+    // entry K-1-i keeps the K least of both sorted lists (the lower half
+    // of a bitonic merge), then a 9-comparator network sorts them.
 #pragma unroll
     for (int off = 1; off < kS; off <<= 1) {
         float od[K];
@@ -96,19 +108,15 @@ __global__ void knn_kernel(const float* __restrict__ qg,
             oc[i] = __shfl_xor_sync(0xffffffffu, bc[i], off);
         }
 #pragma unroll
-        for (int n = 0; n < K; ++n) {
-            if (before(od[n], oc[n], bd[K - 1], bc[K - 1])) {
-                bd[K - 1] = od[n];
-                bc[K - 1] = oc[n];
-#pragma unroll
-                for (int i = K - 1; i > 0; --i) {
-                    if (before(bd[i], bc[i], bd[i - 1], bc[i - 1])) {
-                        const float td = bd[i]; bd[i] = bd[i - 1]; bd[i - 1] = td;
-                        const int tc = bc[i]; bc[i] = bc[i - 1]; bc[i - 1] = tc;
-                    }
-                }
+        for (int i = 0; i < K; ++i) {
+            if (before(od[K - 1 - i], oc[K - 1 - i], bd[i], bc[i])) {
+                bd[i] = od[K - 1 - i];
+                bc[i] = oc[K - 1 - i];
             }
         }
+        exchange(bd, bc, 0, 1); exchange(bd, bc, 3, 4); exchange(bd, bc, 2, 4);
+        exchange(bd, bc, 2, 3); exchange(bd, bc, 0, 3); exchange(bd, bc, 0, 2);
+        exchange(bd, bc, 1, 4); exchange(bd, bc, 1, 3); exchange(bd, bc, 1, 2);
     }
 
     if (lane == 0 && qi < g) {

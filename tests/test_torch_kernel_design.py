@@ -11,7 +11,8 @@ the spec:
   of moved to the sentinel;
 - K4 gives each query S lanes, each keeping the top-5 of every S-th
   column, and merges the S lists lexicographically on (d, column) in a
-  butterfly of rounds.
+  butterfly of rounds; each merge keeps the lesser of entry i and the
+  partner's entry 4 - i, then sorts the five.
 
 Tolerance: none. Both models compute the plain version's float32
 distances, so indices and distances must be equal.
@@ -110,28 +111,47 @@ def _lane_lists(d2, lanes, k=5):
     return vals, cols
 
 
-def _butterfly_merge(vals, cols, k=5):
-    """Each round, lane s merges its list with lane s ^ off's and keeps
-    the k lexicographically least (d, column) pairs."""
+def _lex_sorted(vals, cols):
+    """Sorted on (d, column) along the last axis."""
+    by_col = torch.argsort(cols, dim=-1, stable=True)
+    vals, cols = vals.gather(-1, by_col), cols.gather(-1, by_col)
+    by_d = torch.argsort(vals, dim=-1, stable=True)
+    return vals.gather(-1, by_d), cols.gather(-1, by_d)
+
+
+def _union_least(vals, cols, pv, pc, k=5):
+    """The k least pairs of both lists."""
+    v, c = _lex_sorted(torch.cat([vals, pv], -1), torch.cat([cols, pc], -1))
+    return v[..., :k], c[..., :k]
+
+
+def _half_cleaner(vals, cols, pv, pc):
+    """The kernel's merge: entry i against the partner's entry k-1-i,
+    the lexicographic lesser kept (the lower half of a bitonic merge),
+    then sorted."""
+    rv, rc = pv.flip(-1), pc.flip(-1)
+    take = (rv < vals) | ((rv == vals) & (rc < cols))
+    return _lex_sorted(torch.where(take, rv, vals), torch.where(take, rc, cols))
+
+
+def _butterfly_merge(vals, cols, merge):
+    """Each round, lane s merges its list with lane s ^ off's."""
     lanes = vals.shape[2]
     off = 1
     while off < lanes:
         partner = torch.arange(lanes) ^ off
-        uv = torch.cat([vals, vals[:, :, partner]], dim=-1)
-        uc = torch.cat([cols, cols[:, :, partner]], dim=-1)
-        by_col = torch.argsort(uc, dim=-1, stable=True)
-        uv, uc = uv.gather(-1, by_col), uc.gather(-1, by_col)
-        by_d = torch.argsort(uv, dim=-1, stable=True)
-        vals, cols = uv.gather(-1, by_d)[..., :k], uc.gather(-1, by_d)[..., :k]
+        vals, cols = merge(vals, cols, vals[:, :, partner], cols[:, :, partner])
         off *= 2
     assert torch.equal(vals, vals[:, :, :1].expand_as(vals))
     return vals[:, :, 0], cols[:, :, 0].to(torch.int32)
 
 
+@pytest.mark.parametrize("merge", [_union_least, _half_cleaner],
+                         ids=["union", "half_cleaner"])
 @pytest.mark.parametrize("w", [1024, 1000])
 @pytest.mark.parametrize("lanes", [8, 16])
 @pytest.mark.parametrize("case", ["random", "sentinel", "duplicates"])
-def test_lane_slices_merge_to_plain_knn(case, lanes, w):
+def test_lane_slices_merge_to_plain_knn(case, lanes, w, merge):
     rng = np.random.default_rng(7)
     qg = (rng.normal(size=(3, 24, 3)) * 5).astype(np.float32)
     win = (rng.normal(size=(3, w, 3)) * 5).astype(np.float32)
@@ -144,7 +164,7 @@ def test_lane_slices_merge_to_plain_knn(case, lanes, w):
     for c in range(3):
         diff = qg[:, :, None, c] - win[:, None, :, c]
         d2 = d2 + diff * diff
-    got = _butterfly_merge(*_lane_lists(d2, lanes))
+    got = _butterfly_merge(*_lane_lists(d2, lanes), merge)
     want = grouped_window_knn_plain(qg, win, 5)
     for g, w_ in zip(got, want):
         assert g.dtype == w_.dtype and torch.equal(g, w_)

