@@ -23,8 +23,9 @@
 //
 // Design: the grid is (reference chunks) x (query tiles of 64, one
 // query per thread). The chunk length is picked so that the grid holds
-// about two blocks per SM: surf gets 43 chunks of 192 rows x 6 tiles =
-// 258 blocks, corner 60 chunks of 32 rows x 4 tiles = 240 blocks. A
+// about eight blocks per SM, with chunks of at least 32 rows: surf gets
+// 128 chunks of 64 rows x 6 tiles = 768 blocks, corner 60 chunks of 32
+// rows x 4 tiles = 240 blocks. A
 // block stages its chunk once in shared memory as float4 {x, y, z,
 // ring bits}; a masked row is staged with x = NaN, so its distance is
 // NaN and never passes the strict `d < best` test. Each thread scans the
@@ -44,7 +45,7 @@ namespace {
 typedef unsigned long long Key;
 constexpr Key kNone = ~0ull;       // no candidate; above every real key
 constexpr int kTile = 64;          // queries per block, one per thread
-constexpr int kTargetBlocks = 528; // four blocks per SM of an H100
+constexpr int kTargetBlocks = 1056; // eight blocks per SM of an H100
 constexpr int kMaxChunk = 2048;    // rows per block: 32 KB of float4
 constexpr float kValidD2 = 1e12f;  // every real match is closer than this
 

@@ -14,7 +14,7 @@ At VLP-16 the search is 256 corner queries against 1,920 rows and 384
 surf queries against 8,192: arithmetic below one launch's latency on an
 H100, and too few queries for a block per query tile to fill its 132
 SMs. The kernel (``csrc/corresp.cu``) splits the reference into chunks
-across blocks (240 blocks for corner, 258 for surf) and reduces each
+across blocks (240 blocks for corner, 768 for surf) and reduces each
 query's minimum with atomicMin on a packed 64-bit (distance bits,
 column) key, exact and in any block order; masked rows are skipped in
 the kernel, so a call is one memset and three kernels.

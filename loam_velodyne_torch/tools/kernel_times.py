@@ -255,7 +255,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="directory that holds the loam_velodyne_torch to time")
-    ap.add_argument("--reps", type=int, default=50)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -268,8 +267,8 @@ def main() -> int:
         fn = getattr(importlib.import_module(f"loam_velodyne_torch.ops.{module}"),
                      name)
         call = lambda: fn(*inputs[case])  # noqa: E731
-        ms[case] = min(time_ms(call, ns.reps) for _ in range(2))
-        hst_ms[case] = host_ms(call, ns.reps)
+        ms[case] = min(time_ms(call) for _ in range(2))
+        hst_ms[case] = host_ms(call)
         grf_ms[case] = graph_ms(call)
         prof = device_profile(call)
         dev_ms[case] = prof["device_ms"]
