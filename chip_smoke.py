@@ -2,9 +2,10 @@
 
 Builds the four CUDA kernels of ``loam_velodyne_torch`` from the sources
 in this checkout, compares each with its plain PyTorch version at every
-VLP-16 main-path shape and times it there (the wrapper, the launch
-alone, the plain version, a library call where one computes the same
-function, and the bound from ``loam_velodyne_torch/tools/kernel_times.py``),
+VLP-16 main-path shape and times it there (the wrapper, its device work
+in a CUDA graph, the plain version, a library call where one computes
+the same function, and the bound from
+``loam_velodyne_torch/tools/kernel_times.py``),
 then replays the 48-sweep synthetic benchmark sequence (noisy turning
 trajectory) through the engine's static-cadence chunks on ``cuda:0`` and
 checks the trajectory, the telemetry and each kernel's launch count. It
@@ -125,29 +126,6 @@ EXPECTED_LAUNCHES = {"grid_windows": 48, "greedy_pick_rows": 96,
                      "corresp_search": 470, "grouped_window_knn": 240}
 
 
-def _raw_call(case: str, args: tuple):
-    """The kernel's launch alone, into outputs allocated once here."""
-    dev = args[0].device
-    if case == "grid":
-        cols, starts, p = args
-        out = torch.empty((starts.shape[0], cols.shape[0], p), device=dev)
-        return lambda: grid_kernel.grid_windows_into(cols, starts, out)
-    if case.startswith("greedy"):
-        labels = torch.empty(args[0].shape, dtype=torch.int32, device=dev)
-        marks = torch.empty(args[0].shape, dtype=torch.bool, device=dev)
-        return lambda: greedy_kernel.greedy_pick_rows_into(*args, labels, marks)
-    if case.startswith("corresp"):
-        nq = args[0].shape[0]
-        keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)
-        out = tuple(torch.empty(nq, dtype=dt, device=dev)
-                    for dt in (torch.int32, torch.float32) * 3)
-        return lambda: corresp_kernel.corresp_search_into(*args, keys, out)
-    qg, win, k = args
-    d2 = torch.empty(qg.shape[:2] + (k,), device=dev)
-    cols = torch.empty(qg.shape[:2] + (k,), dtype=torch.int32, device=dev)
-    return lambda: knn_kernel.grouped_window_knn_into(qg, win, d2, cols)
-
-
 def _library_call(case: str, args: tuple):
     """One PyTorch call that computes the same function (timed as a
     yardstick, never called by the port), or None where there is none."""
@@ -162,8 +140,8 @@ def check_kernels(dev) -> list[dict]:
     main-path shape (inputs from a numpy seed), then timed: the wrapper
     and the plain version by CUDA events around back-to-back calls
     (``ms``, ``plain_ms``: what a caller pays, host time included); the
-    launch alone into preallocated outputs and the library call
-    captured in a CUDA graph (``kernel_ms``, ``library_ms``: the device's
+    wrapper and the library call captured in a CUDA graph, which replays
+    only their device work (``kernel_ms``, ``library_ms``: the device's
     time with the host out of the way); the host's time to enqueue a
     wrapper call (``host_ms``); the wrapper's device operations per call
     and their summed durations (``device_ms``, from the profiler); beside
@@ -178,16 +156,15 @@ def check_kernels(dev) -> list[dict]:
             want = plain(*args)
             got, want = ((got,), (want,)) if name == "grid_windows" else (got, want)
             err = max(err, _require_equal(f"{name} {case}", got, want))
-            k_fn, r_fn, l_fn = (lambda: wrapper(*args)), _raw_call(case, args), \
-                _library_call(case, args)
+            k_fn, l_fn = (lambda: wrapper(*args)), _library_call(case, args)
             if l_fn is not None:
                 _require_equal(f"{name} {case} library call",
                                (l_fn().permute(1, 0, 2),), got)
             ms = kernel_times.time_ms(k_fn)
-            kernel_ms = kernel_times.graph_ms(r_fn)
+            kernel_ms = kernel_times.graph_ms(k_fn)
             plain_ms = kernel_times.time_ms(lambda: plain(*args))
             library_ms = None if l_fn is None else kernel_times.graph_ms(l_fn)
-            kernel_ms = min(kernel_ms, kernel_times.graph_ms(r_fn))
+            kernel_ms = min(kernel_ms, kernel_times.graph_ms(k_fn))
             ms = min(ms, kernel_times.time_ms(k_fn))
             per_case[case] = {
                 "shapes": [list(a.shape) for a in args
@@ -198,7 +175,7 @@ def check_kernels(dev) -> list[dict]:
                 **kernel_times.bound(case, args)}
             c = per_case[case]
             print(f"kernel {name} {case}: exact match; wrapper {ms:.4f} ms, "
-                  f"launch in a graph {kernel_ms:.4f} ms, host "
+                  f"in a graph {kernel_ms:.4f} ms, host "
                   f"{c['host_ms']:.4f} ms, "
                   f"on the device "
                   f"{c['device_ms']:.4f} ms in {c['device_ops_per_call']:g} "

@@ -93,20 +93,6 @@ def corresp_search_plain(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     return _normalize(_search_plain(query_xyz, ref, ring, bracket, surf_mode))
 
 
-def corresp_search_into(query: Tensor, ref: Tensor, ring: Tensor,
-                        mask: Tensor, bracket: float, surf_mode: bool,
-                        keys: Tensor, out: Tuple[Tensor, ...]) -> None:
-    """Launch the kernel on contiguous CUDA tensors: ``keys`` is int64
-    scratch of 3 * Q words, ``out`` the (j, dj, l, dl, m, dm) outputs,
-    int32 and float32 of (Q,). Counts no launch (``corresp_search``
-    does)."""
-    cuda_lib.launch("loam_corresp", query.device, query.data_ptr(),
-                    ref.data_ptr(), ring.data_ptr(), mask.data_ptr(),
-                    keys.data_ptr(), *(t.data_ptr() for t in out),
-                    query.shape[0], ref.shape[0], float(bracket),
-                    int(surf_mode))
-
-
 def corresp_search(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
                    ref_mask: Tensor, bracket: float, surf_mode: bool
                    ) -> Tuple[Tensor, ...]:
@@ -127,8 +113,10 @@ def corresp_search(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     nq, dev = query_xyz.shape[0], query_xyz.device
     out = tuple(torch.empty(nq, dtype=dt, device=dev)
                 for dt in (torch.int32, torch.float32) * 3)
-    keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)
-    corresp_search_into(*args, bracket, surf_mode, keys, out)
+    keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)   # scratch
+    cuda_lib.launch("loam_corresp", dev, *(t.data_ptr() for t in args),
+                    keys.data_ptr(), *(t.data_ptr() for t in out), nq,
+                    ref_xyz.shape[0], float(bracket), int(surf_mode))
     corresp_search.launches += 1
     return out
 

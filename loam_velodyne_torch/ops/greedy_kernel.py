@@ -64,6 +64,7 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
     int32. Runs the K candidate steps in order. Returns (labels (rows, W)
     int32, new marks (rows, W) bool)."""
     rows, w = curv.shape
+    k_cap = cand_idx.shape[1]
     if (cand_ok.shape != cand_idx.shape or picked0.shape != curv.shape
             or left_ext.shape != curv.shape or right_ext.shape != curv.shape
             or cand_idx.shape[0] != rows):
@@ -80,25 +81,12 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
     cuda_lib.check_cuda("greedy_pick_rows", *args)
     labels = torch.empty((rows, w), dtype=torch.int32, device=curv.device)
     marks = torch.empty((rows, w), dtype=torch.bool, device=curv.device)
-    greedy_pick_rows_into(*args, threshold, quota, sharp_quota, is_corner,
-                          labels, marks)
-    greedy_pick_rows.launches += 1
-    return labels, marks
-
-
-def greedy_pick_rows_into(curv, cand_idx, cand_ok, picked0, left_ext,
-                          right_ext, threshold: float, quota: int,
-                          sharp_quota: int, is_corner: bool,
-                          labels: torch.Tensor, marks: torch.Tensor) -> None:
-    """Launch the kernel on contiguous CUDA tensors into ``labels``
-    (rows, W) int32 and ``marks`` (rows, W) bool. Counts no launch
-    (``greedy_pick_rows`` does)."""
-    args = (curv, cand_idx, cand_ok, picked0, left_ext, right_ext)
-    rows, w = curv.shape
     cuda_lib.launch("loam_greedy_pick_rows", curv.device,
                     *(a.data_ptr() for a in args), labels.data_ptr(),
-                    marks.data_ptr(), rows, w, cand_idx.shape[1],
-                    float(threshold), quota, sharp_quota, int(is_corner))
+                    marks.data_ptr(), rows, w, k_cap, float(threshold),
+                    quota, sharp_quota, int(is_corner))
+    greedy_pick_rows.launches += 1
+    return labels, marks
 
 
 greedy_pick_rows.launches = 0

@@ -38,21 +38,13 @@ def grid_windows(cols: torch.Tensor, starts: torch.Tensor,
     if cols.device.type == "cpu":
         return grid_windows_plain(cols, starts, p_cap)
     cuda_lib.check_cuda("grid_windows", cols, starts)
-    out = torch.empty((starts.shape[0], cols.shape[0], p_cap),
-                      dtype=torch.float32, device=cols.device)
-    grid_windows_into(cols, starts, out)
+    c, npad = cols.shape
+    r = starts.shape[0]
+    out = torch.empty((r, c, p_cap), dtype=torch.float32, device=cols.device)
+    cuda_lib.launch("loam_grid_windows", cols.device, cols.data_ptr(),
+                    starts.data_ptr(), out.data_ptr(), r, c, npad, p_cap)
     grid_windows.launches += 1
     return out
-
-
-def grid_windows_into(cols: torch.Tensor, starts: torch.Tensor,
-                      out: torch.Tensor) -> None:
-    """Launch the kernel on contiguous CUDA tensors into ``out`` (R, C,
-    P). Counts no launch (``grid_windows`` does)."""
-    r, c, p_cap = out.shape
-    cuda_lib.launch("loam_grid_windows", cols.device, cols.data_ptr(),
-                    starts.data_ptr(), out.data_ptr(), r, c, cols.shape[1],
-                    p_cap)
 
 
 grid_windows.launches = 0

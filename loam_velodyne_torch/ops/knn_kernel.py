@@ -56,24 +56,15 @@ def grouped_window_knn(q_groups: torch.Tensor, windows: torch.Tensor,
     if q_groups.device.type == "cpu":
         return grouped_window_knn_plain(q_groups, windows, k)
     cuda_lib.check_cuda("grouped_window_knn", q_groups, windows)
-    d2 = torch.empty(q_groups.shape[:2] + (k,), dtype=torch.float32,
-                     device=q_groups.device)
-    cols = torch.empty(q_groups.shape[:2] + (k,), dtype=torch.int32,
-                       device=q_groups.device)
-    grouped_window_knn_into(q_groups, windows, d2, cols)
-    grouped_window_knn.launches += 1
-    return d2, cols
-
-
-def grouped_window_knn_into(q_groups: torch.Tensor, windows: torch.Tensor,
-                            d2: torch.Tensor, cols: torch.Tensor) -> None:
-    """Launch the kernel on contiguous CUDA tensors into the (T, G, 5)
-    outputs ``d2`` (float32) and ``cols`` (int32). Counts no launch
-    (``grouped_window_knn`` does)."""
     t, g, _ = q_groups.shape
+    w = windows.shape[1]
+    d2 = torch.empty((t, g, k), dtype=torch.float32, device=q_groups.device)
+    cols = torch.empty((t, g, k), dtype=torch.int32, device=q_groups.device)
     cuda_lib.launch("loam_grouped_window_knn", q_groups.device,
                     q_groups.data_ptr(), windows.data_ptr(), d2.data_ptr(),
-                    cols.data_ptr(), t, g, windows.shape[1])
+                    cols.data_ptr(), t, g, w)
+    grouped_window_knn.launches += 1
+    return d2, cols
 
 
 grouped_window_knn.launches = 0

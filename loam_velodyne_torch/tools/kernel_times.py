@@ -1,39 +1,25 @@
-"""The four kernels' main-path inputs, bounds and timing on one CUDA card.
+"""The four kernels' main-path inputs, bounds and timers on one CUDA card.
 
 Builds each kernel's inputs at the VLP-16 main-path shapes from a numpy
 seed, computes each call's bound on an H100 from those inputs, and times
-a callable with CUDA events. ``chip_smoke.py`` uses it for its kernel
-phase. Run alone, it times the four wrappers of the package found under
-``--root`` (default: this checkout) at those shapes, so that two
-versions of the port (say, an older commit unpacked with ``git
-archive``) can be timed on one card in one call:
-
-    python3 loam_velodyne_torch/tools/kernel_times.py [--root DIR]
-
-It prints one JSON line: the card, the root, and for each case the
-wrapper's time in milliseconds (CUDA events around back-to-back calls,
-so the host's launch overhead counts where it exceeds the device's
-work), the host's time to enqueue a call, the time per call with the
-host out of the way (calls captured in a CUDA graph), the device time
-per call (the durations of the operations it puts on the device, from
-``torch.profiler``) and the number of those operations. The module
-imports no kernel at import time.
+a callable with CUDA events: back-to-back calls (host time included),
+calls captured in a CUDA graph (the device's time with the host out of
+the way), the host's enqueue time, and the device operations a call puts
+on the card (``torch.profiler``). ``chip_smoke.py`` uses it for its
+kernel phase. Importing the module builds no kernel.
 """
 
 from __future__ import annotations
 
-import argparse
-import importlib
-import json
 import subprocess
-import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+from loam_velodyne_torch.ops import greedy_kernel
 
 # Published H100 SXM peaks: float32 outside the tensor cores, HBM3.
 PEAK_F32_OPS = 67e12
@@ -44,18 +30,6 @@ SWEEP_CAP = 32768       # VLP-16 sweep rows (K1)
 P_CAP = 2048            # ring capacity (K1)
 N_RINGS = 16
 BRACKET = 2.5
-
-# case -> (kernel module, wrapper); every case's argument tuple is the
-# wrapper's positional arguments.
-CASES = {
-    "grid": ("grid_kernel", "grid_windows"),
-    "greedy_corner": ("greedy_kernel", "greedy_pick_rows"),
-    "greedy_flat": ("greedy_kernel", "greedy_pick_rows"),
-    "corresp_corner": ("corresp_kernel", "corresp_search"),
-    "corresp_surf": ("corresp_kernel", "corresp_search"),
-    "knn_corner": ("knn_kernel", "grouped_window_knn"),
-    "knn_surf": ("knn_kernel", "grouped_window_knn"),
-}
 
 
 def main_path_inputs(dev: torch.device, seed: int = 0) -> dict:
@@ -124,12 +98,21 @@ def work(case: str, args: tuple) -> tuple[int, int]:
         read = cols.shape[0] * int(covered.sum()) * 4 + _nbytes(starts)
         return 0, read + len(s) * cols.shape[0] * p * 4
     if case.startswith("greedy"):
-        curv, cand, ok, picked0, left, right = args[:6]
+        curv, cand, ok, picked0 = args[:4]
         rows, w = curv.shape
         # Per candidate step: the threshold, picked and quota tests and
-        # the count; the outputs are labels (int32) and marks (bool).
+        # the count. The pick reads curv only at the distinct usable
+        # candidates of a row and left/right only at the picks (those of
+        # the plain version on the same inputs); the candidates, picked0
+        # and the outputs, labels (int32) and marks (bool), whole.
         ops = 4 * cand.numel()
-        return ops, _nbytes(curv, cand, ok, picked0, left, right) + rows * w * 5
+        at_cand = torch.zeros((rows, w), dtype=torch.bool, device=curv.device)
+        at_cand.scatter_(1, cand.long(), ok)
+        labels, _ = greedy_kernel.greedy_pick_rows_plain(*args)
+        n_picks = int((labels != 0).sum())
+        read = (4 * int(at_cand.sum()) + 8 * n_picks
+                + _nbytes(cand, ok, picked0))
+        return ops, read + rows * w * 5
     if case.startswith("corresp"):
         q, ref, ring, mask, bracket, surf = args
         nq, m = q.shape[0], ref.shape[0]
@@ -249,36 +232,3 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
-                    help="directory that holds the loam_velodyne_torch to time")
-    ns = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_times: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ns.root)
-    dev = torch.device("cuda:0")
-    inputs = main_path_inputs(dev)
-    ms, hst_ms, grf_ms, dev_ms, dev_ops = {}, {}, {}, {}, {}
-    for case, (module, name) in CASES.items():
-        fn = getattr(importlib.import_module(f"loam_velodyne_torch.ops.{module}"),
-                     name)
-        call = lambda: fn(*inputs[case])  # noqa: E731
-        ms[case] = min(time_ms(call) for _ in range(2))
-        hst_ms[case] = host_ms(call)
-        grf_ms[case] = graph_ms(call)
-        prof = device_profile(call)
-        dev_ms[case] = prof["device_ms"]
-        dev_ops[case] = prof["device_ops_per_call"]
-    print(json.dumps({"card": card(), "root": ns.root, "ms": ms,
-                      "host_ms": hst_ms, "graph_ms": grf_ms,
-                      "device_ms": dev_ms,
-                      "device_ops_per_call": dev_ops}))
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -163,9 +163,6 @@ def test_wrappers_count_their_launches():
     win = torch.ones((1, 64, 3), device=dev)
     knn_kernel.grouped_window_knn(qg, win, 5)
     knn_kernel.grouped_window_knn_plain(qg, win, 5)
-    knn_kernel.grouped_window_knn_into(qg, win, torch.empty((1, 8, 5), device=dev),
-                                       torch.empty((1, 8, 5), dtype=torch.int32,
-                                                   device=dev))
     assert knn_kernel.grouped_window_knn.launches == before + 1
     before = corresp_kernel.corresp_search.launches
     args = (torch.zeros((4, 3), device=dev), torch.ones((9, 3), device=dev),
