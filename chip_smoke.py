@@ -8,15 +8,18 @@ the same function, and the bound from
 ``loam_velodyne_torch/tools/kernel_times.py``),
 then replays the 48-sweep synthetic benchmark sequence (noisy turning
 trajectory) through the engine's static-cadence chunks on ``cuda:0`` and
-checks the trajectory, the telemetry and each kernel's launch count. It
-imports only ``loam_velodyne_torch`` (never JAX or the JAX package).
+checks the trajectory, the telemetry and each kernel's launch count.
+Beside the kernels it times an empty kernel launched the same way, in a
+CUDA graph: the launch floor, the least time any launch takes on the
+card, printed on its own line and as ``floor_ms``. It imports only
+``loam_velodyne_torch`` (never JAX or the JAX package).
 
 Run from the repository root:  python3 chip_smoke.py
 Every failure raises (non-zero exit). The last line of standard output
 is ``{"ok": true, "device": {...}}``; the line before it is the card's
 ``name, power.limit``, and before that one JSON object with each
 kernel's launches, error, times and bound, the heaviest main-path case
-at the top level and every case under ``cases``.
+at the top level and every case under ``cases``, and the launch floor.
 """
 
 from __future__ import annotations
@@ -192,6 +195,15 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def launch_floor(dev) -> float:
+    """The empty kernel's time per call in a CUDA graph (ms)."""
+    floor_ms = min(kernel_times.graph_ms(lambda: cuda_lib.noop(dev))
+                   for _ in range(2))
+    print(f"launch floor: {floor_ms:.4f} ms per empty kernel in a graph",
+          flush=True)
+    return floor_ms
+
+
 def run_engine(dev, card: str) -> dict:
     """Replay the benchmark sequence through the port's engine."""
     cfg = LoamConfig.preset("VLP-16")
@@ -250,12 +262,13 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda:0")
+    floor_ms = launch_floor(dev)
     kernels = check_kernels(dev)
     launches = run_engine(dev, card)
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_per_sweep"] = launches[row["name"]] / N_SWEEPS
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All four kernels compile with ``nvcc`` into one shared library with a
-plain C interface, loaded through ``ctypes``. The build runs on first
-use, from the sources in the package only, into ``build/torch_kernels/``
-at the repository root (listed in ``.gitignore``); the library's file
-name carries a hash of the sources, so an edited kernel is rebuilt and a
-stale library is never loaded.
+The kernels compile with ``nvcc`` into one shared library with a plain
+C interface, loaded through ``ctypes``: one ``nvcc -c`` per source, all
+started together, then one link. The build runs on first use, from the
+sources in the package only, into ``build/torch_kernels/`` at the
+repository root (listed in ``.gitignore``); the library's file name
+carries a hash of the sources, so an edited kernel is rebuilt and a
+stale library is never loaded. Besides the four kernels of the pipeline
+it holds an empty kernel (``noop``), whose time in a CUDA graph is the
+launch floor the kernels are read against.
 
 Flags: ``-fmad=false`` keeps ``a*b + c`` as a separate multiply and add,
 so squared distances round exactly as the plain PyTorch versions (one
@@ -28,7 +31,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +46,7 @@ _SIGNATURES = {
     "loam_corresp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _F, _I, _P],
     "loam_grouped_window_knn": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "loam_noop": [_P],
 }
 
 _lib = None
@@ -77,15 +81,32 @@ def build(verbose: bool = False) -> Path:
     out = library_path()
     if out.exists():
         return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs = tmp.with_suffix(".obj")
+    objs.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = [(src, objs / f"{src.stem}.o") for src in sources()]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                   "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in jobs]
+        logs = [p.communicate()[1] for p in procs]
+        failed = [(src.name, p.returncode, log) for (src, _), p, log
+                  in zip(jobs, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *(str(obj) for _, obj in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     if verbose:
-        print(res.stderr.strip())
+        print("\n".join(log.strip() for log in logs))
     os.replace(tmp, out)
     return out
 
@@ -111,6 +132,12 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def noop(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream (the
+    launch floor; it counts nothing)."""
+    launch("loam_noop", device)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -3,11 +3,16 @@
 Replaces ``loam_velodyne_tpu/ops/pallas_greedy.py:greedy_pick_rows``
 (``_greedy_kernel``). The pick is sequential by design: each pick
 suppresses its neighbours before the next candidate is tested. On the
-card the chain's latency bounds it, not bytes or arithmetic; the kernel
-(``csrc/greedy.cu``) keeps each row's state in shared memory, one block
-per row, so all rows advance in parallel and a step costs two block
-barriers. The plain version below runs the same loop with one vector op
-per step over all rows.
+card a chain of K dependent steps per row bounds it, not bytes or
+arithmetic. The kernel (``csrc/greedy.cu``) runs one warp per row and
+does all that does not depend on earlier picks before the chain, in
+parallel: each lane loads and tests its candidates and packs each one's
+column, usability and clamped span into a register. The row's picked
+flags are bits, one 32-column word per lane, so a step is a broadcast
+of the candidate, one shuffle for the word that owns its column, a bit
+test and an OR of the span. That caps a row at ``MAX_W`` columns and
+``MAX_K`` candidates; the wrapper refuses more. The plain version below
+runs the same loop with one vector op per step over all rows.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from loam_velodyne_torch.ops import cuda_lib
 LABEL_SHARP = 2
 LABEL_LESS_SHARP = 1
 LABEL_FLAT = -1
+
+MAX_W = 1024       # one 32-bit word of picked flags per lane of a warp
+MAX_K = 256        # eight candidate registers per lane
 
 
 def greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0, left_ext,
@@ -77,6 +85,9 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
         return greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0,
                                       left_ext, right_ext, threshold, quota,
                                       sharp_quota, is_corner)
+    if w > MAX_W or k_cap > MAX_K:
+        raise ValueError(f"greedy_pick_rows: the kernel takes W <= {MAX_W} "
+                         f"and K <= {MAX_K}, got W={w}, K={k_cap}")
     args = (curv, cand_idx, cand_ok, picked0, left_ext, right_ext)
     cuda_lib.check_cuda("greedy_pick_rows", *args)
     labels = torch.empty((rows, w), dtype=torch.int32, device=curv.device)

@@ -3,11 +3,13 @@
 Replaces ``loam_velodyne_tpu/ops/pallas_grid.py:grid_windows``
 (``_grid_kernel``). Row r of the (R, C, P) output is
 ``cols[:, starts[r] : starts[r] + P]``: pure data movement, bit-exact.
-On the card it is bound by bytes (512 KB in and out at VLP-16); the
-kernel (``csrc/grid.cu``) copies one (ring, column) row per block with
-coalesced reads and writes. A start is clamped to ``[0, Npad - P]``, as
-a dynamic slice clamps it; the caller pads the columns so that no real
-start needs the clamp.
+Its bytes (512 KB out at VLP-16) take less than a launch on the card,
+so memory latency and the launch set its time; the kernel
+(``csrc/grid.cu``) has every thread issue its 4 coalesced loads before
+any store, over (R, C, ceil(P / 1024)) blocks, so the copy waits on
+memory once. A start is clamped to ``[0, Npad - P]``, as a dynamic
+slice clamps it; the caller pads the columns so that no real start
+needs the clamp.
 """
 
 from __future__ import annotations

@@ -21,11 +21,11 @@ ROT = slice(0, 3)
 POS = slice(3, 6)
 
 
-def identity_pose(device: torch.device | str = "cpu") -> Tensor:
+def identity_pose(device: torch.device | str) -> Tensor:
     return torch.zeros((6,), dtype=torch.float32, device=device)
 
 
-def make_pose(rot, pos, device: torch.device | str = "cpu") -> Tensor:
+def make_pose(rot, pos, device: torch.device | str) -> Tensor:
     rot = torch.as_tensor(rot, dtype=torch.float32, device=device).reshape(3)
     pos = torch.as_tensor(pos, dtype=torch.float32, device=device).reshape(3)
     return torch.cat([rot, pos])

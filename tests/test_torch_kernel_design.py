@@ -1,9 +1,16 @@
-"""The arithmetic that the K3 and K4 CUDA kernels rely on, on the CPU.
+"""The arithmetic that the K2, K3 and K4 CUDA kernels rely on, on the CPU.
 
-The kernels (``loam_velodyne_torch/csrc/corresp.cu`` and ``knn.cu``) run
-only on a card, so these tests rebuild their decompositions as small
-torch models and hold each against the plain PyTorch version, which is
-the spec:
+The kernels (``loam_velodyne_torch/csrc/greedy.cu``, ``corresp.cu`` and
+``knn.cu``) run only on a card, so these tests rebuild their
+decompositions as small numpy or torch models and hold each against the
+plain PyTorch version, which is the spec:
+
+- K2 runs one warp per row: lane l packs candidates l, l + 32, ... (the
+  column, a usable bit and the span clamped to the row, 10 bits each)
+  before the chain and owns the picked bits of columns [32l, 32l + 32);
+  a step broadcasts the candidate, reads its column's bit from the
+  owner's word, and ORs each lane's share of the span into its word;
+  the labels come from the picks' bits after the chain;
 
 - K3 splits the reference into column chunks across blocks and reduces
   each query's minimum with atomicMin on a packed int64 key, (float bits
@@ -24,7 +31,9 @@ import torch
 
 from loam_velodyne_torch.ops.corresp_kernel import (corresp_search_plain,
                                                     pairwise_sq_dist)
+from loam_velodyne_torch.ops.greedy_kernel import greedy_pick_rows_plain
 from loam_velodyne_torch.ops.knn_kernel import grouped_window_knn_plain
+from test_torch_kernels_cuda import GREEDY_CASES, greedy_case
 from test_torch_odometry import CASES, _case
 
 INF = float("inf")
@@ -166,5 +175,114 @@ def test_lane_slices_merge_to_plain_knn(case, lanes, w, merge):
         d2 = d2 + diff * diff
     got = _butterfly_merge(*_lane_lists(d2, lanes), merge)
     want = grouped_window_knn_plain(qg, win, 5)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g, w_)
+
+
+FULL = 0xFFFFFFFF
+FIELD = 1023                     # 10-bit column fields of a packed candidate
+USABLE = 1 << 30
+NO_SPAN = FIELD << 10            # lo = 1023 > hi = 0: an empty span
+BASE = 32 * np.arange(32)        # each lane's first column
+
+
+def _popc(x):
+    return sum((x >> b) & 1 for b in range(32))
+
+
+def _pack_candidates(curv, cand_idx, cand_ok, left, right, thr, corner):
+    """(rows, rounds, 32): lane l of round r holds candidate 32 r + l,
+    packed as the kernel packs it before the chain; a candidate that can
+    never be taken (not ok, out of the row, failing the threshold) is 0."""
+    rows, w = curv.shape
+    k_cap = cand_idx.shape[1]
+    rounds = max(1, -(-k_cap // 32))
+    idx = np.full((rows, 32 * rounds), -1, np.int64)
+    ok = np.zeros((rows, 32 * rounds), bool)
+    idx[:, :k_cap], ok[:, :k_cap] = cand_idx, cand_ok
+    usable = ok & (idx >= 0) & (idx < w)
+    i = np.where(usable, idx, 0)
+    c = np.take_along_axis(curv, i, 1)
+    lo = i - np.take_along_axis(left, i, 1)
+    hi = i + np.take_along_axis(right, i, 1)
+    passes = c > thr if corner else c < thr
+    a, e = np.maximum(lo, 0), np.minimum(hi, w - 1)
+    span = np.where(a <= e, (a << 10) | (e << 20), NO_SPAN)
+    v = np.where(usable & passes, i | span | USABLE, 0)
+    return v.reshape(rows, rounds, 32)
+
+
+def _span_bits(v):
+    """(rows, 32): each lane's share of the broadcast spans v (rows,)."""
+    a = ((v >> 10) & FIELD)[:, None] - BASE
+    e = ((v >> 20) & FIELD)[:, None] - BASE
+    frm = (FULL << np.clip(a, 0, 31)) & FULL
+    to = FULL >> (31 - np.clip(e, 0, 31))
+    return np.where((a <= e) & (e >= 0) & (a <= 31), frm & to, 0)
+
+
+def _ballot_words(flags):
+    """(rows, W) bool -> (rows, 32) words: bit b of lane l's word is
+    column 32 l + b (the ballot of round l over a coalesced read)."""
+    rows, w = flags.shape
+    padded = np.zeros((rows, 1024), np.int64)
+    padded[:, :w] = flags
+    return (padded.reshape(rows, 32, 32) << np.arange(32)).sum(-1)
+
+
+def _greedy_warp_model(curv, cand_idx, cand_ok, picked0, left, right, thr,
+                       quota, sharp, corner):
+    curv, cand_idx, cand_ok, picked0, left, right = (
+        a.numpy().astype(np.int64) if a.dtype != torch.float32 else a.numpy()
+        for a in (curv, cand_idx, cand_ok, picked0, left, right))
+    rows, w = curv.shape
+    cand = _pack_candidates(curv, cand_idx, cand_ok.astype(bool), left, right,
+                            thr, corner)
+    rounds = cand.shape[1]
+    words = _ballot_words(picked0.astype(bool))
+    words0 = words.copy()
+    picks = np.zeros((rows, rounds), np.int64)
+    n = np.zeros(rows, np.int64)
+    active = np.full(rows, quota > 0)      # the chain stops every 8 steps
+    row = np.arange(rows)
+    for k in range(32 * rounds):
+        v = cand[:, k >> 5, k & 31]                  # from lane k & 31
+        i = v & FIELD
+        owner = words[row, i >> 5]                   # from lane i >> 5
+        take = (active & ((v & USABLE) != 0) & (((owner >> (i & 31)) & 1) == 0)
+                & (n < quota))
+        words |= np.where(take[:, None], _span_bits(v), 0)
+        picks[:, k >> 5] |= take.astype(np.int64) << (k & 31)
+        n += take
+        if k & 7 == 7:
+            active &= n < quota
+
+    labels = np.zeros((rows, w), np.int32)
+    before = np.zeros(rows, np.int64)
+    for r in range(rounds):
+        p = picks[:, r]
+        hit = ((p[:, None] >> np.arange(32)) & 1) == 1             # (rows, 32)
+        i = cand[:, r] & FIELD
+        for lane in range(32):
+            # __match_any_sync: of the picks of one column, the last writes.
+            later = (hit[:, lane + 1:] & (i[:, lane + 1:] == i[:, lane:lane + 1])
+                     ).any(1)
+            write = hit[:, lane] & ~later
+            ord_ = before + _popc(p & (FULL >> (31 - lane)))
+            lab = np.where(ord_ <= sharp, 2, 1) if corner else np.full(rows, -1)
+            labels[row[write], i[write, lane]] = lab[write]
+        before += _popc(p)
+    fresh = words & ~words0
+    marks = ((fresh[:, :, None] >> np.arange(32)) & 1).reshape(rows, 1024)[:, :w]
+    return torch.from_numpy(labels), torch.from_numpy(marks == 1)
+
+
+@pytest.mark.parametrize("k", [40, 64, 96])
+@pytest.mark.parametrize("corner", [True, False], ids=["corner", "flat"])
+@pytest.mark.parametrize("name", list(GREEDY_CASES))
+def test_warp_bit_model_matches_plain_greedy(name, corner, k):
+    args = greedy_case(name, corner, k, torch.device("cpu"))
+    want = greedy_pick_rows_plain(*args)
+    got = _greedy_warp_model(*args)
     for g, w_ in zip(got, want):
         assert g.dtype == w_.dtype and torch.equal(g, w_)

@@ -20,3 +20,18 @@ def test_greedy_bound_reads_curv_at_candidates_and_extents_at_picks():
     # candidates (12 B), their flags (3 B), picked0 (8 B), and the
     # outputs: int32 labels and bool marks over 8 columns (40 B).
     assert nbytes == 4 + 8 + 12 + 3 + 8 + 40
+
+
+def test_greedy_chain_steps_end_where_the_quota_fills():
+    # Row 0 picks columns 1 and 5 at steps 1 and 3 (quota 2); row 1 never
+    # fills its quota, so it runs all 4 steps.
+    curv = torch.full((2, 8), 0.5)
+    cand = torch.tensor([[1, 2, 5, 7], [1, 2, 5, 7]], dtype=torch.int32)
+    ok = torch.tensor([[True, True, True, True], [True, False, False, False]])
+    picked0 = torch.zeros((2, 8), dtype=torch.bool)
+    ext = torch.ones((2, 8), dtype=torch.int32)
+    args = (curv, cand, ok, picked0, ext, ext, 0.1, 2, 1, True)
+    assert kernel_times.chain_steps(args) == 4
+    args = (curv[:1], cand[:1], ok[:1], picked0[:1], ext[:1], ext[:1], 0.1, 2,
+            1, True)
+    assert kernel_times.chain_steps(args) == 3
