@@ -25,10 +25,11 @@
 // - Step k broadcasts candidate k's word from lane k & 31 (it does not
 //   depend on the state, so it issues ahead), fetches the word that owns
 //   idx from its lane by one shuffle, tests the bit, and every lane ORs
-//   in its share of the span, branch-free. The pick is kept as a
-//   warp-uniform bit per candidate; labels are made from those bits
-//   after the chain. Once the quota is full nothing can change, so the
-//   chain stops at the next multiple of 8 steps.
+//   in its share of the span, branch-free. Steps run in groups of 8,
+//   the next group's broadcasts issued before this group's chain. The
+//   pick is kept as a warp-uniform bit per candidate; labels are made
+//   from those bits after the chain. Once the quota is full nothing can
+//   change, so the chain stops at the end of the group.
 // Outputs: labels staged in shared memory (zeroed, the picks' labels
 // scattered, a later repeat of the same column winning as in the plain
 // loop) and stored coalesced; marks = picked & ~picked0 from the words.
@@ -115,18 +116,35 @@ greedy_pick_kernel(const float* __restrict__ curv,
     for (int r = 0; r < ROUNDS; ++r) picks[r] = 0;
     int n = 0;
     if (quota > 0) {
+        // Steps run in groups of 8; the next group's broadcasts are
+        // issued before this group's chain, so only the owner's shuffle,
+        // the bit test and the OR stay on it.
+        unsigned v[8], next[8];
 #pragma unroll
-        for (int k = 0; k < 32 * ROUNDS; ++k) {
-            const unsigned v = __shfl_sync(FULL, cand[k >> 5], k & 31);
-            const unsigned span = span_bits(v, base);
-            const int i = (int)(v & FIELD);
-            const unsigned owner = __shfl_sync(FULL, word, i >> 5);
-            const bool take = (v & USABLE) && !((owner >> (i & 31)) & 1u)
-                              && n < quota;
-            word |= take ? span : 0u;
-            picks[k >> 5] |= (unsigned)take << (k & 31);
-            n += take;
-            if ((k & 7) == 7 && n >= quota) break;
+        for (int s = 0; s < 8; ++s) v[s] = __shfl_sync(FULL, cand[0], s);
+#pragma unroll
+        for (int g = 0; g < 4 * ROUNDS; ++g) {
+#pragma unroll
+            for (int s = 0; s < 8; ++s) {
+                const int k = 8 * (g + 1) + s;
+                next[s] = k < 32 * ROUNDS
+                    ? __shfl_sync(FULL, cand[(k >> 5) % ROUNDS], k & 31) : 0u;
+            }
+#pragma unroll
+            for (int s = 0; s < 8; ++s) {
+                const int k = 8 * g + s;
+                const unsigned span = span_bits(v[s], base);
+                const int i = (int)(v[s] & FIELD);
+                const unsigned owner = __shfl_sync(FULL, word, i >> 5);
+                const bool take = (v[s] & USABLE)
+                                  && !((owner >> (i & 31)) & 1u) && n < quota;
+                word |= take ? span : 0u;
+                picks[k >> 5] |= (unsigned)take << (k & 31);
+                n += take;
+            }
+            if (n >= quota) break;
+#pragma unroll
+            for (int s = 0; s < 8; ++s) v[s] = next[s];
         }
     }
 
