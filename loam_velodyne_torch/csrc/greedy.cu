@@ -22,13 +22,15 @@
 //   32-bit register per candidate (10-bit idx, lo, hi and a usable bit).
 // - The row's picked flags are bits: lane l owns the word of columns
 //   [32l, 32l + 32), built from picked0 by ballots (W <= 1024).
-// - Step k broadcasts candidate k's word from lane k & 31 (it does not
-//   depend on the state, so it issues ahead), fetches the word that owns
-//   idx from its lane by one shuffle, tests the bit, and every lane ORs
-//   in its share of the span, branch-free. Steps run in groups of 8,
-//   the next group's broadcasts issued before this group's chain. The
-//   pick is kept as a warp-uniform bit per candidate; labels are made
-//   from those bits after the chain. Once the quota is full nothing can
+// - The packed candidates go to shared memory, and the chain is a loop
+//   over groups of 8 steps whose body is unrolled, so that its code
+//   stays small (a chain unrolled over all K steps is ~60 KB of
+//   straight-line code at K = 96). A group reads its 8 candidates (one
+//   broadcast read each, none depending on the state); step k fetches
+//   the word that owns idx from its lane by one shuffle, tests the bit,
+//   and every lane ORs in its share of the span, branch-free. The pick
+//   is kept as a warp-uniform bit per candidate; labels are made from
+//   those bits after the chain. Once the quota is full nothing can
 //   change, so the chain stops at the end of the group.
 // Outputs: labels staged in shared memory (zeroed, the picks' labels
 // scattered, a later repeat of the same column winning as in the plain
@@ -66,6 +68,8 @@ greedy_pick_kernel(const float* __restrict__ curv,
                    int w, int k_cap, float threshold, int quota,
                    int sharp_quota, int is_corner) {
     extern __shared__ int s_label[];       // the row's labels, w ints
+    __shared__ unsigned s_cand[32 * ROUNDS];   // packed candidates
+    __shared__ unsigned char s_pick[4 * ROUNDS];   // picks, 8 steps a byte
     const int lane = threadIdx.x;
     const size_t off = (size_t)blockIdx.x * w;
     const size_t coff = (size_t)blockIdx.x * k_cap;
@@ -107,45 +111,43 @@ greedy_pick_kernel(const float* __restrict__ curv,
         word = lane == i ? b : word;
     }
     const unsigned word0 = word;
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) s_cand[32 * r + lane] = cand[r];
+    if (lane < 4 * ROUNDS) s_pick[lane] = 0;
+    __syncwarp();
 
-    // The chain. `take` is the same in every lane: v and owner are
-    // broadcasts, n counts the same picks.
+    // The chain: a loop over groups of 8 steps, its body unrolled (the
+    // code stays small). `take` is the same in every lane: v and owner
+    // are broadcasts, n counts the same picks.
     const int base = 32 * lane;
+    int n = 0;
+    const int groups = quota > 0 ? (k_cap + 7) / 8 : 0;
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+        unsigned v[8];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) v[s] = s_cand[8 * g + s];
+        unsigned taken = 0;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+            const unsigned span = span_bits(v[s], base);
+            const int i = (int)(v[s] & FIELD);
+            const unsigned owner = __shfl_sync(FULL, word, i >> 5);
+            const bool take = (v[s] & USABLE) && !((owner >> (i & 31)) & 1u)
+                              && n < quota;
+            word |= take ? span : 0u;
+            taken |= (unsigned)take << s;
+            n += take;
+        }
+        if (lane == 0) s_pick[g] = (unsigned char)taken;
+        if (n >= quota) break;
+    }
+    __syncwarp();
     unsigned picks[ROUNDS];
 #pragma unroll
-    for (int r = 0; r < ROUNDS; ++r) picks[r] = 0;
-    int n = 0;
-    if (quota > 0) {
-        // Steps run in groups of 8; the next group's broadcasts are
-        // issued before this group's chain, so only the owner's shuffle,
-        // the bit test and the OR stay on it.
-        unsigned v[8], next[8];
-#pragma unroll
-        for (int s = 0; s < 8; ++s) v[s] = __shfl_sync(FULL, cand[0], s);
-#pragma unroll
-        for (int g = 0; g < 4 * ROUNDS; ++g) {
-#pragma unroll
-            for (int s = 0; s < 8; ++s) {
-                const int k = 8 * (g + 1) + s;
-                next[s] = k < 32 * ROUNDS
-                    ? __shfl_sync(FULL, cand[(k >> 5) % ROUNDS], k & 31) : 0u;
-            }
-#pragma unroll
-            for (int s = 0; s < 8; ++s) {
-                const int k = 8 * g + s;
-                const unsigned span = span_bits(v[s], base);
-                const int i = (int)(v[s] & FIELD);
-                const unsigned owner = __shfl_sync(FULL, word, i >> 5);
-                const bool take = (v[s] & USABLE)
-                                  && !((owner >> (i & 31)) & 1u) && n < quota;
-                word |= take ? span : 0u;
-                picks[k >> 5] |= (unsigned)take << (k & 31);
-                n += take;
-            }
-            if (n >= quota) break;
-#pragma unroll
-            for (int s = 0; s < 8; ++s) v[s] = next[s];
-        }
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int k = 32 * r + lane;
+        picks[r] = __ballot_sync(FULL, (s_pick[k >> 3] >> (k & 7)) & 1u);
     }
 
     for (int c = lane; c < w; c += 32) s_label[c] = 0;

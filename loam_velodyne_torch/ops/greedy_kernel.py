@@ -7,11 +7,12 @@ card a chain of K dependent steps per row bounds it, not bytes or
 arithmetic. The kernel (``csrc/greedy.cu``) runs one warp per row and
 does all that does not depend on earlier picks before the chain, in
 parallel: each lane loads and tests its candidates and packs each one's
-column, usability and clamped span into a register. The row's picked
-flags are bits, one 32-column word per lane, so a step is a broadcast
-of the candidate, one shuffle for the word that owns its column, a bit
-test and an OR of the span. That caps a row at ``MAX_W`` columns and
-``MAX_K`` candidates; the wrapper refuses more. The plain version below
+column, usability and clamped span into one 32-bit word. The row's
+picked flags are bits, one 32-column word per lane, so a step is a
+broadcast read of the candidate, one shuffle for the word that owns its
+column, a bit test and an OR of the span; the steps run as a loop over
+groups of 8, which keeps the code small. That caps a row at ``MAX_W``
+columns and ``MAX_K`` candidates; the wrapper refuses more. The plain version below
 runs the same loop with one vector op per step over all rows.
 """
 
