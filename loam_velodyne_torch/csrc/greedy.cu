@@ -24,14 +24,14 @@
 //   [32l, 32l + 32), built from picked0 by ballots (W <= 1024).
 // - The packed candidates go to shared memory, and the chain is a loop
 //   over groups of 8 steps whose body is unrolled, so that its code
-//   stays small (a chain unrolled over all K steps is ~60 KB of
-//   straight-line code at K = 96). A group reads its 8 candidates (one
-//   broadcast read each, none depending on the state); step k fetches
-//   the word that owns idx from its lane by one shuffle, tests the bit,
-//   and every lane ORs in its share of the span, branch-free. The pick
-//   is kept as a warp-uniform bit per candidate; labels are made from
-//   those bits after the chain. Once the quota is full nothing can
-//   change, so the chain stops at the end of the group.
+//   stays small: unrolled over all K steps, the chain ran slower, its
+//   straight-line code fetched anew at each launch. A group reads its 8
+//   candidates (one broadcast read each, none depending on the state);
+//   step k fetches the word that owns idx from its lane by one shuffle,
+//   tests the bit, and every lane ORs in its share of the span,
+//   branch-free. The pick is kept as a warp-uniform bit per candidate;
+//   labels are made from those bits after the chain. Once the quota is
+//   full nothing can change, so the chain stops at the end of the group.
 // Outputs: labels staged in shared memory (zeroed, the picks' labels
 // scattered, a later repeat of the same column winning as in the plain
 // loop) and stored coalesced; marks = picked & ~picked0 from the words.

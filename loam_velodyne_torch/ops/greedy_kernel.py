@@ -12,8 +12,9 @@ picked flags are bits, one 32-column word per lane, so a step is a
 broadcast read of the candidate, one shuffle for the word that owns its
 column, a bit test and an OR of the span; the steps run as a loop over
 groups of 8, which keeps the code small. That caps a row at ``MAX_W``
-columns and ``MAX_K`` candidates; the wrapper refuses more. The plain version below
-runs the same loop with one vector op per step over all rows.
+columns and ``MAX_K`` candidates; the wrapper refuses more. The plain
+version below runs the same loop with one vector op per step over all
+rows.
 """
 
 from __future__ import annotations
