@@ -9,7 +9,11 @@ the same function, and the bound from
 then replays the 48-sweep synthetic benchmark sequence (noisy turning
 trajectory) through the engine's static-cadence chunks on ``cuda:0`` and
 checks the trajectory, the telemetry and each kernel's launch count.
-Beside the kernels it times an empty kernel launched the same way, in a
+The replay records the arguments of each K2 call on the way to the
+wrapper; after it, each of those calls is held against the plain
+version, and the steps its rows need and its time in a CUDA graph
+go under ``engine`` in K2's row (K2's time follows its data). Beside
+the kernels it times an empty kernel launched the same way, in a
 CUDA graph: the launch floor, the least time any launch takes on the
 card, printed on its own line and as ``floor_ms``. It imports only
 ``loam_velodyne_torch`` (never JAX or the JAX package).
@@ -36,8 +40,8 @@ from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.eval.metrics import ate_rmse
 from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.models.engine import Engine
-from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, greedy_kernel,
-                                     grid_kernel, knn_kernel)
+from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
+                                     greedy_kernel, grid_kernel, knn_kernel)
 from loam_velodyne_torch.tools import kernel_times
 
 SEED = 0
@@ -176,6 +180,11 @@ def check_kernels(dev) -> list[dict]:
                 "library_ms": library_ms, "host_ms": kernel_times.host_ms(k_fn),
                 **kernel_times.device_profile(k_fn),
                 **kernel_times.bound(case, args)}
+            if name == "greedy_pick_rows":
+                steps = greedy_kernel.greedy_chain_steps(*args)
+                per_case[case]["chain_steps"] = {
+                    "longest_row": int(steps.max()),
+                    "median_row": float(steps.float().median())}
             c = per_case[case]
             print(f"kernel {name} {case}: exact match; wrapper {ms:.4f} ms, "
                   f"in a graph {kernel_ms:.4f} ms, host "
@@ -204,8 +213,45 @@ def launch_floor(dev) -> float:
     return floor_ms
 
 
-def run_engine(dev, card: str) -> dict:
-    """Replay the benchmark sequence through the port's engine."""
+def engine_greedy(calls: list) -> dict:
+    """K2 on the inputs the engine gave it in the replay, for corners and
+    for flats: each call against the plain version, the steps each row
+    needs (``greedy_chain_steps``: ``longest_row`` over all calls, the
+    median call's longest row, the median row; the chain runs them
+    rounded up to a group of 8) and each call's time in a CUDA graph
+    (mean and max)."""
+    out = {}
+    for kind, corner in (("corner", True), ("flat", False)):
+        mine = [a for a in calls if a[9] is corner]
+        for i, a in enumerate(mine):
+            _require_equal(f"greedy_pick_rows engine {kind} call {i}",
+                           greedy_kernel.greedy_pick_rows(*a),
+                           greedy_kernel.greedy_pick_rows_plain(*a))
+        steps = torch.stack([greedy_kernel.greedy_chain_steps(*a)
+                             for a in mine]).float()
+        ms = [kernel_times.graph_ms(
+                  lambda a=a: greedy_kernel.greedy_pick_rows(*a), 10, 5)
+              for a in mine]
+        out[kind] = {"calls": len(mine), "shape": list(mine[0][0].shape),
+                     "longest_row": int(steps.max()),
+                     "median_call_longest_row":
+                         float(steps.max(1).values.median()),
+                     "median_row": float(steps.median()),
+                     "kernel_ms_mean": sum(ms) / len(ms),
+                     "kernel_ms_max": max(ms)}
+        o = out[kind]
+        print(f"engine K2 {kind}: {o['calls']} calls of {o['shape']}, bit-equal "
+              f"to the plain version; rows need up to {o['longest_row']} "
+              f"steps (median call {o['median_call_longest_row']:g}, median row "
+              f"{o['median_row']:g}); in a graph {o['kernel_ms_mean']:.4f} ms "
+              f"a call (max {o['kernel_ms_max']:.4f})", flush=True)
+    return out
+
+
+def run_engine(dev, card: str) -> tuple[dict, list]:
+    """Replay the benchmark sequence through the port's engine. Returns
+    the kernels' launch counts and K2's calls (their arguments), which
+    the replay records on the way to the wrapper."""
     cfg = LoamConfig.preset("VLP-16")
     xyz, mask, gt = synthetic.bench_sequence(N_SWEEPS, cfg.lidar, SWEEP_CAP)
     xyz_d = torch.from_numpy(xyz).to(dev)
@@ -217,9 +263,19 @@ def run_engine(dev, card: str) -> dict:
                 "grouped_window_knn": knn_kernel.grouped_window_knn}
     for fn in wrappers.values():
         fn.launches = 0
+    greedy_calls = []
+
+    def recorded_greedy(*args):
+        greedy_calls.append(args)
+        return greedy_kernel.greedy_pick_rows(*args)
+
+    features.greedy_pick_rows = recorded_greedy
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    packed, t_first = replay(engine, xyz_d, mask_d)
+    try:
+        packed, t_first = replay(engine, xyz_d, mask_d)
+    finally:
+        features.greedy_pick_rows = greedy_kernel.greedy_pick_rows
     t_end = time.perf_counter()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     print(f"engine kernel launches: {json.dumps(launches)}", flush=True)
@@ -244,7 +300,7 @@ def run_engine(dev, card: str) -> dict:
           f"after the first chunk, card: {card}", flush=True)
     if not ate <= ATE_GATE_M:
         raise AssertionError(f"ATE {ate:.4f} m above the {ATE_GATE_M} m gate")
-    return launches
+    return launches, greedy_calls
 
 
 def main() -> int:
@@ -264,8 +320,10 @@ def main() -> int:
     dev = torch.device("cuda:0")
     floor_ms = launch_floor(dev)
     kernels = check_kernels(dev)
-    launches = run_engine(dev, card)
+    launches, greedy_calls = run_engine(dev, card)
     for row in kernels:
+        if row["name"] == "greedy_pick_rows":
+            row["engine"] = engine_greedy(greedy_calls)
         row["launches"] = launches[row["name"]]
         row["launches_per_sweep"] = launches[row["name"]] / N_SWEEPS
     print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))

@@ -31,7 +31,10 @@
 //   tests the bit, and every lane ORs in its share of the span,
 //   branch-free. The pick is kept as a warp-uniform bit per candidate;
 //   labels are made from those bits after the chain. Once the quota is
-//   full nothing can change, so the chain stops at the end of the group.
+//   full, or past the row's last usable candidate, nothing can change,
+//   so the chain stops at the end of that group: on real sweeps few
+//   points pass the corner threshold, and corner rows run out of usable
+//   candidates long before their quota fills.
 // Outputs: labels staged in shared memory (zeroed, the picks' labels
 // scattered, a later repeat of the same column winning as in the plain
 // loop) and stored coalesced; marks = picked & ~picked0 from the words.
@@ -111,8 +114,13 @@ greedy_pick_kernel(const float* __restrict__ curv,
         word = lane == i ? b : word;
     }
     const unsigned word0 = word;
+    int last = -1;                         // the last usable candidate
 #pragma unroll
-    for (int r = 0; r < ROUNDS; ++r) s_cand[32 * r + lane] = cand[r];
+    for (int r = 0; r < ROUNDS; ++r) {
+        s_cand[32 * r + lane] = cand[r];
+        const unsigned u = __ballot_sync(FULL, (cand[r] & USABLE) != 0u);
+        last = u ? 32 * r + 31 - __clz(u) : last;
+    }
     if (lane < 4 * ROUNDS) s_pick[lane] = 0;
     __syncwarp();
 
@@ -121,7 +129,7 @@ greedy_pick_kernel(const float* __restrict__ curv,
     // are broadcasts, n counts the same picks.
     const int base = 32 * lane;
     int n = 0;
-    const int groups = quota > 0 ? (k_cap + 7) / 8 : 0;
+    const int groups = quota > 0 ? (last + 8) / 8 : 0;
 #pragma unroll 1
     for (int g = 0; g < groups; ++g) {
         unsigned v[8];

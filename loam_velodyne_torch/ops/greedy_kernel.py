@@ -11,7 +11,9 @@ column, usability and clamped span into one 32-bit word. The row's
 picked flags are bits, one 32-column word per lane, so a step is a
 broadcast read of the candidate, one shuffle for the word that owns its
 column, a bit test and an OR of the span; the steps run as a loop over
-groups of 8, which keeps the code small. That caps a row at ``MAX_W``
+groups of 8, which keeps the code small, and stop with the group where
+the quota fills or the row's last usable candidate falls
+(``greedy_chain_steps`` counts them). That caps a row at ``MAX_W``
 columns and ``MAX_K`` candidates; the wrapper refuses more. The plain
 version below runs the same loop with one vector op per step over all
 rows.
@@ -38,18 +40,39 @@ def greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0, left_ext,
                            sharp_quota: int, is_corner: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel (same loop, vectorized over rows)."""
+    labels, marks, _ = _pick_plain(curv, cand_idx, cand_ok, picked0, left_ext,
+                                   right_ext, threshold, quota, sharp_quota,
+                                   is_corner)
+    return labels, marks
+
+
+def greedy_chain_steps(curv, cand_idx, cand_ok, picked0, left_ext, right_ext,
+                       threshold: float, quota: int, sharp_quota: int,
+                       is_corner: bool) -> torch.Tensor:
+    """(rows,) int32: the candidate steps each row's pick needs, up to
+    its last candidate that could still be taken (usable, the quota not
+    yet full); no later step can pick. The kernel's chain runs that
+    rounded up to a group of 8, so its time follows the longest row."""
+    return _pick_plain(curv, cand_idx, cand_ok, picked0, left_ext, right_ext,
+                       threshold, quota, sharp_quota, is_corner)[2]
+
+
+def _pick_plain(curv, cand_idx, cand_ok, picked0, left_ext, right_ext,
+                threshold, quota, sharp_quota, is_corner):
     rows, w = curv.shape
     dev = curv.device
     col = torch.arange(w, device=dev)[None, :]
     picked = picked0.clone()
     labels = torch.zeros((rows, w), dtype=torch.int32, device=dev)
     n_picked = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    steps = torch.zeros((rows,), dtype=torch.int32, device=dev)
     for k in range(cand_idx.shape[1]):
         idx = cand_idx[:, k:k + 1].long()                      # (rows, 1)
         c_i = curv.gather(1, idx)[:, 0]
         passes = c_i > threshold if is_corner else c_i < threshold
-        eligible = (cand_ok[:, k] & ~picked.gather(1, idx)[:, 0] & passes
-                    & (n_picked < quota))
+        can = cand_ok[:, k] & passes & (n_picked < quota)
+        eligible = can & ~picked.gather(1, idx)[:, 0]
+        steps = torch.where(can, k + 1, steps)
         n_picked = n_picked + eligible.to(torch.int32)
         if is_corner:
             lab = torch.where(n_picked <= sharp_quota, LABEL_SHARP,
@@ -61,7 +84,7 @@ def greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0, left_ext,
         lo = idx - left_ext.gather(1, idx)
         hi = idx + right_ext.gather(1, idx)
         picked |= (col >= lo) & (col <= hi) & eligible[:, None]
-    return labels, picked & ~picked0
+    return labels, picked & ~picked0, steps
 
 
 def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,

@@ -140,40 +140,14 @@ def work(case: str, args: tuple) -> tuple[int, int]:
     raise KeyError(case)
 
 
-def chain_steps(args: tuple) -> int:
-    """The most candidate steps any row of a K2 call takes before its
-    quota fills (K where it never does). The kernel's chain stops about
-    there, so its time follows this longest row."""
-    curv, cand, ok, picked0, left, right, thr, quota, _, corner = args
-    rows, w = curv.shape
-    k_cap = cand.shape[1]
-    col = torch.arange(w, device=curv.device)[None, :]
-    picked, n = picked0.clone(), torch.zeros(rows, dtype=torch.int64,
-                                             device=curv.device)
-    steps = torch.full((rows,), k_cap, device=curv.device)
-    for k in range(k_cap):
-        idx = cand[:, k:k + 1].long()
-        c = curv.gather(1, idx)[:, 0]
-        take = (ok[:, k] & ~picked.gather(1, idx)[:, 0] & (n < quota)
-                & (c > thr if corner else c < thr))
-        n += take
-        lo, hi = idx - left.gather(1, idx), idx + right.gather(1, idx)
-        picked |= (col >= lo) & (col <= hi) & take[:, None]
-        steps = torch.where((n >= quota) & (steps == k_cap), k + 1, steps)
-    return int(steps.max())
-
-
 def bound(case: str, args: tuple) -> dict:
     """The least time an H100 could take for the call: the larger of its
     operations over the float32 peak and its bytes over the memory
-    rate. For K2, also the longest row's chain (``chain_steps``)."""
+    rate."""
     ops, nbytes = work(case, args)
     ops_ms, bytes_ms = 1e3 * ops / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
-    out = {"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
-    if case.startswith("greedy"):
-        out["chain_steps"] = chain_steps(args)
-    return out
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
 
 
 def time_ms(fn, reps: int = 50) -> float:

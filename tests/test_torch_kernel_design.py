@@ -31,7 +31,8 @@ import torch
 
 from loam_velodyne_torch.ops.corresp_kernel import (corresp_search_plain,
                                                     pairwise_sq_dist)
-from loam_velodyne_torch.ops.greedy_kernel import greedy_pick_rows_plain
+from loam_velodyne_torch.ops.greedy_kernel import (greedy_chain_steps,
+                                                  greedy_pick_rows_plain)
 from loam_velodyne_torch.ops.knn_kernel import grouped_window_knn_plain
 from test_torch_kernels_cuda import GREEDY_CASES, greedy_case
 from test_torch_odometry import CASES, _case
@@ -243,9 +244,16 @@ def _greedy_warp_model(curv, cand_idx, cand_ok, picked0, left, right, thr,
     words0 = words.copy()
     picks = np.zeros((rows, rounds), np.int64)
     n = np.zeros(rows, np.int64)
-    active = np.full(rows, quota > 0)      # the chain stops every 8 steps
+    # The chain stops at the end of a group of 8 once the quota is full
+    # or the row's last usable candidate is behind it.
+    usable = (cand.reshape(rows, -1) & USABLE) != 0
+    last = np.where(usable.any(1), 32 * rounds - 1 - np.argmax(usable[:, ::-1], 1),
+                    -1)
+    active = np.full(rows, quota > 0) & (last >= 0)
     row = np.arange(rows)
+    ran = np.zeros(rows, np.int64)                   # steps each chain ran
     for k in range(32 * rounds):
+        ran += active
         v = cand[:, k >> 5, k & 31]                  # from lane k & 31
         i = v & FIELD
         owner = words[row, i >> 5]                   # from lane i >> 5
@@ -255,7 +263,7 @@ def _greedy_warp_model(curv, cand_idx, cand_ok, picked0, left, right, thr,
         picks[:, k >> 5] |= take.astype(np.int64) << (k & 31)
         n += take
         if k & 7 == 7:
-            active &= n < quota
+            active &= (n < quota) & (k < last)
 
     labels = np.zeros((rows, w), np.int32)
     before = np.zeros(rows, np.int64)
@@ -274,7 +282,7 @@ def _greedy_warp_model(curv, cand_idx, cand_ok, picked0, left, right, thr,
         before += _popc(p)
     fresh = words & ~words0
     marks = ((fresh[:, :, None] >> np.arange(32)) & 1).reshape(rows, 1024)[:, :w]
-    return torch.from_numpy(labels), torch.from_numpy(marks == 1)
+    return torch.from_numpy(labels), torch.from_numpy(marks == 1), ran
 
 
 @pytest.mark.parametrize("k", [40, 64, 96])
@@ -283,6 +291,17 @@ def _greedy_warp_model(curv, cand_idx, cand_ok, picked0, left, right, thr,
 def test_warp_bit_model_matches_plain_greedy(name, corner, k):
     args = greedy_case(name, corner, k, torch.device("cpu"))
     want = greedy_pick_rows_plain(*args)
-    got = _greedy_warp_model(*args)
+    got = _greedy_warp_model(*args)[:2]
     for g, w_ in zip(got, want):
         assert g.dtype == w_.dtype and torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("corner", [True, False], ids=["corner", "flat"])
+@pytest.mark.parametrize("name", list(GREEDY_CASES))
+def test_warp_chain_runs_the_steps_rows_need(name, corner):
+    """The chain stops with the group of 8 in which the quota fills or
+    the row's last usable candidate falls: it runs the steps
+    greedy_chain_steps counts, rounded up to 8."""
+    args = greedy_case(name, corner, 96 if corner else 64, torch.device("cpu"))
+    need = greedy_chain_steps(*args).numpy()
+    assert (_greedy_warp_model(*args)[2] == -(-need // 8) * 8).all()

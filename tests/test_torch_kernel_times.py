@@ -1,7 +1,9 @@
-"""The bound of a kernel call counts only the reads its data needs."""
+"""The bound of a kernel call counts only the reads its data needs, and
+K2's plain loop counts the steps each row's pick needs."""
 
 import torch
 
+from loam_velodyne_torch.ops import greedy_kernel
 from loam_velodyne_torch.tools import kernel_times
 
 
@@ -23,15 +25,18 @@ def test_greedy_bound_reads_curv_at_candidates_and_extents_at_picks():
 
 
 def test_greedy_chain_steps_end_where_the_quota_fills():
-    # Row 0 picks columns 1 and 5 at steps 1 and 3 (quota 2); row 1 never
-    # fills its quota, so it runs all 4 steps.
+    # Row 0 picks columns 1 and 5 at steps 1 and 3 (quota 2), so step 4
+    # cannot pick; row 1's only usable candidate is its first.
     curv = torch.full((2, 8), 0.5)
     cand = torch.tensor([[1, 2, 5, 7], [1, 2, 5, 7]], dtype=torch.int32)
     ok = torch.tensor([[True, True, True, True], [True, False, False, False]])
     picked0 = torch.zeros((2, 8), dtype=torch.bool)
     ext = torch.ones((2, 8), dtype=torch.int32)
     args = (curv, cand, ok, picked0, ext, ext, 0.1, 2, 1, True)
-    assert kernel_times.chain_steps(args) == 4
-    args = (curv[:1], cand[:1], ok[:1], picked0[:1], ext[:1], ext[:1], 0.1, 2,
-            1, True)
-    assert kernel_times.chain_steps(args) == 3
+    steps = greedy_kernel.greedy_chain_steps(*args)
+    assert steps.dtype == torch.int32 and steps.tolist() == [3, 1]
+    # The plain version's outputs are the same loop's.
+    labels, marks = greedy_kernel.greedy_pick_rows_plain(*args)
+    assert labels[0].tolist() == [0, 2, 0, 0, 0, 1, 0, 0]    # sharp quota 1
+    assert marks[0].tolist() == [True, True, True, False, True, True, True,
+                                 False]

@@ -49,7 +49,7 @@ GREEDY_CASES = {
     "spans": (4, 384), "w200_spans": (4, 200), "w1024_spans": (4, 1024),
     "repeat": (8, 384),
     "all_picked0": (8, 384), "quota_early": (8, 384),
-    "negative_extents": (8, 384),
+    "negative_extents": (8, 384), "few_usable": (8, 384),
 }
 # Columns whose spans (extents 5) cross a 32-column word boundary (31,
 # 64, 127, 160, W - 10) or are clipped at column 0 or W - 1; 2 and W - 3
@@ -66,12 +66,16 @@ def greedy_case(name: str, corner: bool, k: int, device) -> tuple:
     - repeat: candidates 1 and 5-7 repeat candidates 0 and 4;
     - all_picked0: row 0 is rejected whole;
     - quota_early: no suppression, so the quota fills in its first steps;
+    - few_usable: few points pass the threshold, so most rows run out of
+      usable candidates before the quota fills (as on real sweeps);
     - negative_extents: extents in [-3, 5], so some spans are empty;
       candidate 6 repeats candidate 0, whose span leaves its own column
       out, so the column can be picked twice (the later label wins)."""
     rows, w = GREEDY_CASES[name]
     rng = np.random.default_rng(zlib.crc32(name.encode()) + k + 7 * corner)
     curv = rng.exponential(0.1, size=(rows, w)).astype(np.float32)
+    if name == "few_usable":
+        curv = curv * np.float32(0.3) if corner else curv + np.float32(0.095)
     picked0 = rng.random((rows, w)) < 0.1
     lo_ext = -3 if name == "negative_extents" else 0
     left = rng.integers(lo_ext, 6, size=(rows, w)).astype(np.int32)
@@ -237,23 +241,22 @@ def test_grouped_window_knn_shapes(t, g, w):
            knn_kernel.grouped_window_knn_plain(qg, win, 5))
 
 
-def _device_ops(fn) -> tuple[int, list]:
-    """Device operations one call of ``fn`` puts on the card: the count
-    most profiles of one call agree on (the profiler now and then drops
-    a device event, or shows one left over from an earlier profile),
-    and the names each profile saw."""
+def _device_ops(fn) -> list[list[str]]:
+    """The device operations three profiles of one call of ``fn`` each
+    saw, by name. The profiler now and then drops a device event, so a
+    call puts N operations on the card when no profile saw more than N
+    and at least one saw N."""
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(5):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         seen.append([e.name for e in prof.events()
                      if e.device_type == DeviceType.CUDA])
-    counts = [len(names) for names in seen]
-    return max(set(counts), key=counts.count), seen
+    return seen
 
 
 def test_corresp_search_launches_four_device_ops():
@@ -265,8 +268,8 @@ def test_corresp_search_launches_four_device_ops():
             t((rng.normal(size=(8192, 3)) * 5).astype(np.float32)),
             t(rng.integers(0, 16, size=8192).astype(np.int32)),
             t(rng.random(8192) < 0.8), 2.5, True)
-    count, seen = _device_ops(lambda: corresp_kernel.corresp_search(*args))
-    assert count == 4, seen
+    seen = _device_ops(lambda: corresp_kernel.corresp_search(*args))
+    assert max(map(len, seen)) == 4, seen
 
 
 @pytest.mark.parametrize("corner", [True, False], ids=["corner", "flat"])
@@ -274,8 +277,8 @@ def test_greedy_pick_rows_launches_one_device_op(corner):
     """A K2 call is its one kernel, nothing around it."""
     dev = _device()
     args = greedy_case("main", corner, 96 if corner else 64, dev)
-    count, seen = _device_ops(lambda: greedy_kernel.greedy_pick_rows(*args))
-    assert count == 1, seen
+    seen = _device_ops(lambda: greedy_kernel.greedy_pick_rows(*args))
+    assert max(map(len, seen)) == 1, seen
 
 
 def test_wrappers_count_their_launches():
