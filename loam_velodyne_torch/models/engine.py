@@ -3,19 +3,22 @@
 Counterpart of ``loam_velodyne_tpu/models/engine.py``. ``step`` is a
 plain function of (state, raw sweep); the cadence decisions that the
 JAX package takes with ``lax.cond`` on device (odometry's first sweep,
-mapping every io_ratio-th sweep) are pure functions of the sweep
-counter, so here the host passes them in and nothing is read back from
-the device. The device-side counters (``sweep``, ``mapping_inputs``)
-are still carried, so the state matches the JAX layout.
+mapping on the io_ratio / stack_frame_num gate) are pure functions of
+the state's counters, so the host keeps a copy of those counters
+(``Cadence``) and decides them without reading the device. The
+device-side counters (``sweep``, ``mapping_inputs``) are still carried,
+so the state matches the JAX layout and checkpoints load both ways.
 
-``run_chunk`` is the static-cadence chunk (``static_cadence=True`` in
-the JAX package) as a Python loop over ``step``; ``Engine`` holds the
-device, the state and the host-side sweep counter for a replay.
+``step(mapping_mode="auto")`` is the per-sweep path (the cadence gate,
+the dynamic GN schedules, an optional IMU window); "on" / "off" are the
+static cadence that ``run_chunk(static_cadence=True)`` schedules.
+``registered_cloud`` is the full-resolution sweep in the map frame.
+``Engine`` holds the device, the state and the host cadence.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,10 +26,22 @@ from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import fusion as fusion_mod
 from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
+from loam_velodyne_torch.ops import imu as imu_ops
 from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import extract_features
+from loam_velodyne_torch.types import PointSet
+from loam_velodyne_torch.utils import math as lm
 
 Tensor = torch.Tensor
+
+
+def require_device(device) -> torch.device:
+    """The device to run on; a CUDA device without a card is an error
+    (the CPU runs only when asked for)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
 
 
 class EngineState(NamedTuple):
@@ -37,7 +52,8 @@ class EngineState(NamedTuple):
     mapping_inputs: Tensor   # () int32 bundles forwarded to mapping
 
     @staticmethod
-    def create(cfg: LoamConfig, device) -> "EngineState":
+    def create(cfg: LoamConfig, device="cuda") -> "EngineState":
+        device = require_device(device)
         z = torch.zeros((), dtype=torch.int32, device=device)
         return EngineState(
             odometry=odometry_mod.OdometryState.create(cfg, device),
@@ -78,30 +94,92 @@ class EngineOutputs(NamedTuple):
             archive_cnt]).to(torch.float32)
         return torch.cat([odom_pose, mapped_pose, fused_pose, scalars])
 
+    @staticmethod
+    def unpack(p) -> "EngineOutputs":
+        """One (29,) packed row read back to the host (numpy) -> outputs
+        with numpy poses and Python scalars."""
+        c = [int(v) for v in p[20:28]]
+        tel = Telemetry(ingest_dropped=c[0], feature_dropped=c[1],
+                        mapping=mapping_mod.MapTelemetry(
+                            stack_corner_dropped=c[4], stack_surf_dropped=c[5],
+                            cube_corner_dropped=c[2], cube_surf_dropped=c[3],
+                            active_cube_deficit=c[6], archive_reinstated=c[7]))
+        return EngineOutputs(odom_pose=p[0:6], mapped_pose=p[6:12],
+                             fused_pose=p[12:18], mapping_ran=bool(p[18]),
+                             surround_due=bool(p[19]), telemetry=tel, packed=p)
+
+
+class Cadence(NamedTuple):
+    """The host's copy of the state's cadence counters: sweeps processed,
+    bundles forwarded to mapping, and whether odometry has seen a sweep."""
+
+    sweep: int = 0
+    mapping_inputs: int = 0
+    initialized: bool = False
+
+    def gate(self, cfg: LoamConfig) -> Tuple[bool, bool]:
+        """(mapping_input, mapping_due) for the next sweep: odometry
+        forwards its clouds when io_ratio < 2 or sweep % io_ratio == 1,
+        never before it is initialized; mapping takes every
+        stack_frame_num-th bundle, the first included."""
+        io, stack = cfg.odometry.io_ratio, cfg.mapping.stack_frame_num
+        mapping_input = (io < 2 or self.sweep % io == 1) and self.initialized
+        due = mapping_input and (stack < 2 or self.mapping_inputs % stack == 0)
+        return mapping_input, due
+
+    def advance(self, cfg: LoamConfig) -> "Cadence":
+        """The counters after one more sweep."""
+        return Cadence(self.sweep + 1,
+                       self.mapping_inputs + int(self.gate(cfg)[0]), True)
+
+    @staticmethod
+    def of(state: EngineState) -> "Cadence":
+        """The counters of a state (one read from its device)."""
+        sweep, inputs, init = torch.stack([
+            state.sweep, state.mapping_inputs,
+            state.odometry.initialized.to(torch.int32)]).tolist()
+        return Cadence(sweep, inputs, bool(init))
+
 
 def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
-         mapping_mode: str, initialized: bool
+         mapping_mode: str = "auto", cadence: Cadence = Cadence(),
+         imu_window: Optional[imu_ops.ImuWindow] = None,
+         static_schedule: bool = False
          ) -> Tuple[EngineState, EngineOutputs]:
-    """Process one sweep. ``initialized``: whether odometry has seen a
-    sweep (False only on the first sweep of a sequence); ``mapping_mode``
-    "on"/"off": whether this sweep is a mapping frame of the cadence
-    ("on" requires an initialized odometry)."""
-    if mapping_mode not in ("on", "off"):
-        raise ValueError(f"mapping_mode must be 'on' or 'off', got {mapping_mode!r}")
-    if mapping_mode == "on" and not initialized:
+    """Process one sweep. ``cadence``: the host's copy of the state's
+    counters. ``mapping_mode`` "auto" runs mapping on the cadence gate
+    (``Cadence.gate``); "on" / "off" are a cadence the caller scheduled
+    ("on" requires an initialized odometry). ``imu_window``: IMU states
+    with times relative to this sweep's start. ``static_schedule``: the
+    fixed-phase GN schedules in odometry and mapping instead of the
+    dynamic ones. It mirrors the JAX package's ``step`` argument; the
+    port's callers pair it with the mode (True with "on" / "off" from
+    ``run_chunk(static_cadence=True)``, False with "auto")."""
+    if mapping_mode not in ("auto", "on", "off"):
+        raise ValueError(f"mapping_mode must be 'auto', 'on' or 'off', "
+                         f"got {mapping_mode!r}")
+    if mapping_mode == "on" and not cadence.initialized:
         raise ValueError("mapping cannot run on the first sweep")
     dev = raw.xyz.device
-    grid, _ = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration)
+    grid, _ = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration, imu_window)
     feats = extract_features(grid, cfg.registration, cfg.capacities)
-    ostate, oouts = odometry_mod.step(state.odometry, feats, cfg, initialized)
+    if imu_window is not None:
+        imu_state = imu_ops.sweep_state(imu_window, cfg.registration.scan_period)
+        imu_rpy = imu_ops.end_attitude(imu_window, cfg.registration.scan_period)
+    else:
+        imu_state = imu_rpy = None
+    ostate, oouts = odometry_mod.step(state.odometry, feats, cfg,
+                                      cadence.initialized, imu_state,
+                                      static_schedule=static_schedule)
 
-    io_ratio = cfg.odometry.io_ratio
-    mapping_input = (((io_ratio < 2) | (torch.remainder(state.sweep, io_ratio) == 1))
-                     & state.odometry.initialized)
-    if mapping_mode == "on":
+    mapping_input, due = cadence.gate(cfg)
+    if mapping_mode != "auto":
+        due = mapping_mode == "on"
+    if due:
         mstate, mouts = mapping_mod.step(state.mapping, oouts.transform_sum,
                                          oouts.corner_cloud, oouts.surf_cloud,
-                                         cfg)
+                                         cfg, imu_rpy,
+                                         static_schedule=static_schedule)
         fstate = fusion_mod.update_mapping(state.fusion, mouts.transform_aft,
                                            mouts.transform_bef)
         surround_due, map_tel = mouts.surround_due, mouts.telemetry
@@ -109,14 +187,13 @@ def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
         mstate, fstate = state.mapping, state.fusion
         surround_due = torch.zeros((), dtype=torch.bool, device=dev)
         map_tel = mapping_mod.MapTelemetry.zero(dev)
-    mapping_due = torch.full((), mapping_mode == "on", dtype=torch.bool,
-                             device=dev)
+    mapping_due = torch.full((), due, dtype=torch.bool, device=dev)
     fused = fusion_mod.fuse(fstate, oouts.transform_sum)
 
     new_state = EngineState(
         odometry=ostate, mapping=mstate, fusion=fstate,
         sweep=state.sweep + 1,
-        mapping_inputs=state.mapping_inputs + mapping_input.to(torch.int32))
+        mapping_inputs=state.mapping_inputs + int(mapping_input))
     tel = Telemetry(ingest_dropped=grid.dropped, feature_dropped=feats.dropped,
                     mapping=map_tel)
     outs = EngineOutputs(
@@ -139,49 +216,112 @@ def _stack(items):
 
 
 def run_chunk(state: EngineState, raws: scan_mod.RawSweep, cfg: LoamConfig,
-              start_sweep: int = 0) -> Tuple[EngineState, EngineOutputs]:
-    """Process K sweeps (raws with a leading K axis) on the static
-    cadence: mapping runs on sweeps with index % io_ratio == 1. The
-    chunk must start on an io_ratio boundary (start_sweep, the index of
-    its first sweep, counted from the sequence's first sweep). Returns
-    outputs stacked along K."""
+              cadence: Cadence = Cadence(),
+              imu_windows: Optional[imu_ops.ImuWindow] = None,
+              static_cadence: bool = True
+              ) -> Tuple[EngineState, EngineOutputs]:
+    """Process K sweeps (raws, and imu_windows if given, with a leading
+    K axis) from the counters ``cadence``; returns outputs stacked along
+    K. static_cadence=True: mapping on sweeps with index % io_ratio == 1
+    and the static GN schedules; the chunk must start on an io_ratio
+    boundary, with io_ratio >= 2 and stack_frame_num == 1. Otherwise a
+    loop of ``step(mapping_mode="auto")`` with the dynamic schedules."""
     io = cfg.odometry.io_ratio
     k = raws.xyz.shape[0]
-    if io < 2 or cfg.mapping.stack_frame_num != 1:
-        raise ValueError("static cadence needs io_ratio >= 2 and stack_frame_num == 1")
-    if k % io or start_sweep % io:
-        raise ValueError(f"chunk (start {start_sweep}, length {k}) not aligned "
-                         f"to io_ratio {io}")
+    if static_cadence:
+        if io < 2 or cfg.mapping.stack_frame_num != 1:
+            raise ValueError("static cadence needs io_ratio >= 2 and "
+                             "stack_frame_num == 1")
+        if k % io or cadence.sweep % io:
+            raise ValueError(f"chunk (start {cadence.sweep}, length {k}) not "
+                             f"aligned to io_ratio {io}")
     outs = []
     for i in range(k):
         raw = scan_mod.RawSweep(xyz=raws.xyz[i], mask=raws.mask[i])
-        mode = "on" if i % io == 1 else "off"
-        state, o = step(state, raw, cfg, mapping_mode=mode,
-                        initialized=start_sweep + i > 0)
+        win = None if imu_windows is None else imu_ops.window_at(imu_windows, i)
+        if static_cadence:
+            mode = "on" if i % io == 1 else "off"
+            state, o = step(state, raw, cfg, mode, cadence, win,
+                            static_schedule=True)
+        else:
+            state, o = step(state, raw, cfg, "auto", cadence, win)
+        cadence = cadence.advance(cfg)
         outs.append(o)
     return state, _stack(outs)
 
 
-class Engine:
-    """A replay on one device: the engine state and the host-side sweep
-    counter that drives the cadence."""
+def registered_cloud(state: EngineState, raw: scan_mod.RawSweep,
+                     cfg: LoamConfig,
+                     imu_window: Optional[imu_ops.ImuWindow] = None) -> PointSet:
+    """The full-resolution sweep in the map frame: ingested (IMU-deskewed
+    with the window the sweep was processed with), deskewed to the sweep
+    end with the odometry motion and the IMU start / end terms, then
+    moved by the mapped pose. Call after the sweep's step."""
+    _, full = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration, imu_window)
+    if imu_window is not None:
+        imu0 = imu_ops.sweep_state(imu_window, cfg.registration.scan_period)
+    else:
+        imu0 = odometry_mod.ImuSweepState.zero(raw.xyz.device)
+    xyz = lm.transform_to_end(full.xyz, full.rel, state.odometry.transform,
+                              imu0.start_rpy, imu0.end_rpy,
+                              imu0.shift_from_start)
+    xyz = lm.pose_transform_points(state.mapping.transform_aft, xyz)
+    return PointSet(xyz=xyz, rel=torch.zeros_like(full.rel), ring=full.ring,
+                    mask=full.mask)
 
-    def __init__(self, cfg: LoamConfig, device, state: EngineState | None = None,
-                 sweep: int = 0):
+
+class Engine:
+    """A run on one device: the engine state and the host's copy of its
+    cadence counters. ``device`` is the card unless the caller asks for
+    the CPU."""
+
+    def __init__(self, cfg: LoamConfig, device="cuda",
+                 state: EngineState | None = None):
         # Full float32 matrix products on the card (the GN normal
         # equations); TF32 would keep ~3 decimal digits.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.state = EngineState.create(cfg, self.device) if state is None else state
-        self.sweep = sweep
+        self.device = require_device(device)
+        if state is None:
+            self.state, self.cadence = EngineState.create(cfg, self.device), Cadence()
+        else:
+            self.load_state(state)
 
-    def run_chunk(self, xyz: Tensor, mask: Tensor) -> EngineOutputs:
-        """Process a (K, N, 3) / (K, N) chunk of raw sweeps."""
-        raws = scan_mod.RawSweep(xyz=xyz.to(self.device, torch.float32),
+    @property
+    def sweep(self) -> int:
+        return self.cadence.sweep
+
+    def load_state(self, state: EngineState) -> None:
+        """Adopt a state (a loaded checkpoint, say) and its counters."""
+        self.state = state
+        self.cadence = Cadence.of(state)
+
+    def _raws(self, xyz: Tensor, mask: Tensor) -> scan_mod.RawSweep:
+        return scan_mod.RawSweep(xyz=xyz.to(self.device, torch.float32),
                                  mask=mask.to(self.device, torch.bool))
-        self.state, outs = run_chunk(self.state, raws, self.cfg,
-                                     start_sweep=self.sweep)
-        self.sweep += xyz.shape[0]
+
+    def step(self, xyz: Tensor, mask: Tensor,
+             imu_window: Optional[imu_ops.ImuWindow] = None) -> EngineOutputs:
+        """One sweep on the per-sweep path: the cadence gate and the
+        dynamic GN schedules."""
+        self.state, outs = step(self.state, self._raws(xyz, mask), self.cfg,
+                                "auto", self.cadence, imu_window)
+        self.cadence = self.cadence.advance(self.cfg)
         return outs
+
+    def run_chunk(self, xyz: Tensor, mask: Tensor,
+                  imu_windows: Optional[imu_ops.ImuWindow] = None,
+                  static_cadence: bool = True) -> EngineOutputs:
+        """Process a (K, N, 3) / (K, N) chunk of raw sweeps."""
+        self.state, outs = run_chunk(self.state, self._raws(xyz, mask), self.cfg,
+                                     self.cadence, imu_windows, static_cadence)
+        for _ in range(xyz.shape[0]):
+            self.cadence = self.cadence.advance(self.cfg)
+        return outs
+
+    def registered_cloud(self, xyz: Tensor, mask: Tensor,
+                         imu_window: Optional[imu_ops.ImuWindow] = None
+                         ) -> PointSet:
+        return registered_cloud(self.state, self._raws(xyz, mask), self.cfg,
+                                imu_window)

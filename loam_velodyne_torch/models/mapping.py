@@ -2,9 +2,15 @@
 
 Counterpart of ``loam_velodyne_tpu/models/mapping.py``: toroidal cube
 addressing, the two-tier slab + archive map, the windowed 5-NN through
-kernel K4 and the batched closed-form fits, with the static GN
-schedule (``optimize_pose(static_schedule=True)``): fits refreshed at
-each phase start, iterations past the early abort frozen by masks.
+kernel K4 and the batched closed-form fits, with both GN schedules of
+``optimize_pose``: the static one (fits refreshed at each phase start,
+iterations past the early abort frozen by masks, nothing read back) and
+the dynamic one (fits refreshed every ``corresp_refresh_every``
+iterations, the loop left at the first converged iteration, one read
+of the stop flag per iteration). ``step`` takes the IMU's sweep-end
+attitude for the 0.998 / 0.002 roll / pitch blend. The exports
+(``full_map``, ``surround_map``) and the archive's dedup compaction
+(``compact_archive``) run off the per-sweep path.
 
 Torch idiom where JAX needed its own:
 - ``.at[idx].set(..., mode="drop")`` routes rejected rows to one spare
@@ -13,10 +19,6 @@ Torch idiom where JAX needed its own:
 - ``lax.dynamic_slice`` with a device start becomes a gather of
   ``start + arange(size)`` rows (start clamped, as XLA clamps it), so no
   value is read back to the host.
-
-Not ported yet: ``compact_archive`` (only called with
-``archive_compact=True``, which the engine never passes), ``full_map``,
-``surround_map`` and the IMU attitude blend.
 """
 
 from __future__ import annotations
@@ -228,6 +230,16 @@ def fov_valid_cubes(origin: Tensor, tobe: Tensor, m: MappingConfig
     return storage_index(w, m), in_bounds & in_fov, in_bounds
 
 
+def assemble_map_cloud(cube_xyz: Tensor, cube_cnt: Tensor, sidx: Tensor,
+                       valid: Tensor) -> Tuple[Tensor, Tensor]:
+    """The slabs of the selected cubes as one padded cloud and its mask."""
+    cap = cube_xyz.shape[1]
+    sidx = sidx.long()
+    cnt = torch.where(valid, cube_cnt[sidx], 0)
+    mask = torch.arange(cap, device=cube_xyz.device)[None, :] < cnt[:, None]
+    return cube_xyz[sidx].reshape(-1, 3), mask.reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # Map updates.
 # ---------------------------------------------------------------------------
@@ -341,6 +353,32 @@ def archive_append(pool, xyz: Tensor, mask: Tensor, kind: int, budget: int):
     return (pool_xyz, pool_kind, pool_valid, _i32(pool_cnt + n_fit)), _i32(lost)
 
 
+def compact_archive(pool, m: MappingConfig):
+    """Dedup and front-pack the archive pool: rows past the cursor and
+    rows invalidated by recentering go, the first row of each (kind,
+    voxel cell) stays, and survivors move to the front in (kind, cell)
+    order, so the cursor equals the cell count. The JAX package's two
+    packed int32 sort keys are one int64 key here."""
+    xyz, kind, valid, cnt = pool
+    a = xyz.shape[0]
+    dev = xyz.device
+    valid = valid & (torch.arange(a, device=dev) < cnt)
+    leaf = torch.where(kind == 0, torch.full((), m.corner_leaf, device=dev),
+                       torch.full((), m.surf_leaf, device=dev))
+    cell = _i32(torch.floor(xyz / leaf[:, None])).clamp(-4096, 4095).long() + 4096
+    # (invalid, kind, cx, cy, cz): 1 + 1 + 13 + 13 + 13 bits.
+    key = (((~valid).long() << 40) + (kind.long() << 39) + (cell[:, 0] << 26)
+           + (cell[:, 1] << 13) + cell[:, 2])
+    key_s, order = torch.sort(key, stable=True)
+    first = torch.ones(a, dtype=torch.bool, device=dev)
+    first[1:] = key_s[1:] != key_s[:-1]
+    keep = valid[order] & first
+    _, order2 = torch.sort(_i32(~keep), stable=True)
+    order = order[order2]
+    n = keep.sum(dtype=torch.int32)
+    return xyz[order], kind[order], torch.arange(a, device=dev) < n, n
+
+
 def downsample_local_slabs(local_xyz: Tensor, local_cnt: Tensor, do: Tensor,
                            leaf: float) -> Tuple[Tensor, Tensor]:
     """Voxel-thin the selected slabs (one batched downsample)."""
@@ -407,10 +445,13 @@ def _line_dist(x0: Tensor, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
 def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
                   map_corner_xyz: Tensor, map_corner_mask: Tensor,
                   map_surf_xyz: Tensor, map_surf_mask: Tensor,
-                  tobe0: Tensor, cfg: LoamConfig) -> Tensor:
-    """The <=10-iteration map-alignment GN on the static schedule:
-    5-NN and fits refreshed at each phase start, early abort as masked
-    freezing."""
+                  tobe0: Tensor, cfg: LoamConfig,
+                  static_schedule: bool = True) -> Tensor:
+    """The <=10-iteration map-alignment GN. Static schedule: 5-NN and
+    fits refreshed at each phase start, early abort as masked freezing.
+    Dynamic schedule: refreshed when ``it % corresp_refresh_every == 0``,
+    the loop left at the first converged iteration (or at once when the
+    map is too small), each read on the host."""
     m = cfg.mapping
     dev = tobe0.device
     corner_sorted = sort_cloud(map_corner_xyz, map_corner_mask, axis=2)
@@ -477,6 +518,17 @@ def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
     mat_p = torch.eye(6, dtype=torch.float32, device=dev)
     degenerate = torch.zeros((), dtype=torch.bool, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    if not static_schedule:
+        if not bool(run):
+            return tobe0
+        for it in range(m.max_iterations):
+            if it % refresh_every == 0:
+                fits = refresh_fits(tf)
+            tf, mat_p, degenerate, done = iteration(
+                tf, mat_p, degenerate, *fits, compute_projector=(it == 0))
+            if bool(done):
+                break
+        return tf
     for phase in range(n_phases):
         fits = refresh_fits(tf)
         for j in range(refresh_every):
@@ -529,9 +581,12 @@ def _clip_tails(xyz: Tensor, cnt: Tensor, cap: int, m: MappingConfig):
 
 
 def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
-         surf_cloud: PointSet, cfg: LoamConfig
+         surf_cloud: PointSet, cfg: LoamConfig,
+         imu_rpy: Optional[Tuple[Tensor, Tensor]] = None,
+         static_schedule: bool = True
          ) -> Tuple[MappingState, MappingOutputs]:
-    """One mapping refinement (static GN schedule, no IMU blend)."""
+    """One mapping refinement. imu_rpy: optional ((roll, pitch, yaw) at
+    the sweep end, window has data) for the roll / pitch blend."""
     m = cfg.mapping
     dev = odom_pose.device
 
@@ -565,15 +620,19 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
     pos_a, act_a = _select_active(valid_fov, m.max_active_cubes,
                                   weight=local_cc + local_sc)
 
-    def local_assemble(xyz, cnt):
-        c = torch.where(act_a, cnt[pos_a], 0)
-        msk = torch.arange(xyz.shape[1], device=dev)[None, :] < c[:, None]
-        return xyz[pos_a].reshape(-1, 3), msk.reshape(-1)
-
-    map_c_xyz, map_c_mask = local_assemble(local_c, local_cc)
-    map_s_xyz, map_s_mask = local_assemble(local_s, local_sc)
+    map_c_xyz, map_c_mask = assemble_map_cloud(local_c, local_cc, pos_a, act_a)
+    map_s_xyz, map_s_mask = assemble_map_cloud(local_s, local_sc, pos_a, act_a)
     tobe = optimize_pose(corner_stack, surf_stack, map_c_xyz, map_c_mask,
-                         map_s_xyz, map_s_mask, tobe, cfg)
+                         map_s_xyz, map_s_mask, tobe, cfg,
+                         static_schedule=static_schedule)
+    if imu_rpy is not None:
+        rpy, imu_ok = imu_rpy
+        blend = m.imu_blend
+        rx = (1.0 - blend) * tobe[0] + blend * rpy[1]
+        rz = (1.0 - blend) * tobe[2] + blend * rpy[0]
+        tobe = torch.stack([torch.where(imu_ok, rx, tobe[0]), tobe[1],
+                            torch.where(imu_ok, rz, tobe[2]), tobe[3],
+                            tobe[4], tobe[5]])
 
     # Insert into headroom-padded local slabs, re-thin, clip back.
     base_w = sensor_w - m.neighborhood
@@ -681,3 +740,51 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
     return new_state, MappingOutputs(transform_aft=tobe, transform_bef=odom_pose,
                                      surround_due=surround_due,
                                      telemetry=telemetry)
+
+
+# ---------------------------------------------------------------------------
+# Exports.
+# ---------------------------------------------------------------------------
+
+def full_map(state: MappingState, cfg: LoamConfig) -> Tuple[Tensor, Tensor]:
+    """Every stored map point (corner and surf slabs, then the archive
+    pool) across the whole window, with its validity mask."""
+    def flatten(xyz, cnt):
+        cap = xyz.shape[1]
+        mask = torch.arange(cap, device=xyz.device)[None, :] < cnt[:, None]
+        return xyz.reshape(-1, 3), mask.reshape(-1)
+
+    cx, cm = flatten(state.corner_xyz, state.corner_cnt)
+    sx, sm = flatten(state.surf_xyz, state.surf_cnt)
+    a_mask = state.archive_valid & (
+        torch.arange(state.archive_xyz.shape[0], device=cx.device)
+        < state.archive_cnt)
+    return torch.cat([cx, sx, state.archive_xyz]), torch.cat([cm, sm, a_mask])
+
+
+def surround_map(state: MappingState, cfg: LoamConfig,
+                 capacity: int = 65536) -> PointSet:
+    """Downsized surround map: the corner and surf slabs of every
+    in-window neighborhood cube and the archive rows whose cube lies in
+    the neighborhood, voxel-thinned at the corner leaf."""
+    m = cfg.mapping
+    sidx, _, in_bounds = fov_valid_cubes(state.origin, state.transform_tobe, m)
+    c_xyz, c_mask = assemble_map_cloud(state.corner_xyz, state.corner_cnt,
+                                       sidx, in_bounds)
+    s_xyz, s_mask = assemble_map_cloud(state.surf_xyz, state.surf_cnt,
+                                       sidx, in_bounds)
+    sensor_w = world_cube_coord(state.transform_tobe[lm.POS], m)
+    rel3 = (world_cube_coord(state.archive_xyz, m)
+            - (sensor_w - m.neighborhood)[None, :])
+    side = 2 * m.neighborhood + 1
+    a = state.archive_xyz.shape[0]
+    a_mask = (state.archive_valid
+              & (torch.arange(a, device=rel3.device) < state.archive_cnt)
+              & ((rel3 >= 0) & (rel3 < side)).all(-1))
+    xyz = torch.cat([c_xyz, s_xyz, state.archive_xyz])
+    mask = torch.cat([c_mask, s_mask, a_mask])
+    n = xyz.shape[0]
+    ps = PointSet(xyz=xyz, rel=xyz.new_zeros(n),
+                  ring=torch.zeros(n, dtype=torch.int32, device=xyz.device),
+                  mask=mask)
+    return voxel_downsample(ps, m.corner_leaf, capacity)

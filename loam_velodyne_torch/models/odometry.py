@@ -1,13 +1,18 @@
 """Scan-to-scan odometry: 6-DoF motion at sweep rate.
 
-Counterpart of ``loam_velodyne_tpu/models/odometry.py`` with its static
-Gauss-Newton schedule (``_run_gn_static``): correspondences are re-found
-at the start of each refresh phase through kernel K3, and an iteration
-that would come after the early abort is frozen by masks instead of
-skipped. Running every phase with those masks gives the JAX while-loop's
-result without reading anything back from the device. The dynamic
-schedule and IMU input are not ported yet (the IMU terms stay, at zero,
-so the arithmetic is the JAX package's).
+Counterpart of ``loam_velodyne_tpu/models/odometry.py``, with both of
+its Gauss-Newton schedules. The static one (``run_gn_static``, the
+chunked replay's): correspondences are re-found at the start of each
+refresh phase through kernel K3, and an iteration that would come after
+the early abort is frozen by masks instead of skipped, so nothing is
+read back from the device. The dynamic one (``run_gauss_newton`` with
+``static_schedule=False``, the per-sweep path's): correspondences are
+re-found every ``corresp_refresh_every`` iterations and the loop stops
+at the first converged iteration, which costs one read of the stop
+flag per iteration. Both give the same transform. The IMU sweep state
+(``ops/imu.py::sweep_state``) enters as in the JAX package: the
+pitch / roll seed on the first sweep, the velocity prior, the shift
+terms and ``plugin_imu_rotation``; without an IMU it is zero.
 
 Which branch a step takes (first sweep or not) is a host-side flag: it
 is a function of the sweep counter, which the engine keeps on the host.
@@ -215,6 +220,42 @@ def run_gn_static(sharp: PointSet, flat: PointSet, last_corner: PointSet,
     return tf
 
 
+def run_gauss_newton(sharp: PointSet, flat: PointSet, last_corner: PointSet,
+                     last_surf: PointSet, tf0: Tensor, cfg: LoamConfig,
+                     static_schedule: bool = True) -> Tensor:
+    """The <=max_iterations GN alignment; returns the refined transform.
+    ``static_schedule=False`` is the dynamic form: correspondences
+    refreshed when ``it % corresp_refresh_every == 0``, the loop left at
+    the first iteration whose update is below the abort thresholds (or
+    at once when either previous cloud is too small), each read on the
+    host."""
+    if static_schedule:
+        return run_gn_static(sharp, flat, last_corner, last_surf, tf0, cfg)
+    odo = cfg.odometry
+    run = ((last_corner.count() > odo.min_corner_points)
+           & (last_surf.count() > odo.min_surface_points))
+    if not bool(run):
+        return tf0
+    tf = tf0
+    mat_p = torch.eye(6, dtype=torch.float32, device=tf0.device)
+    degenerate = torch.zeros((), dtype=torch.bool, device=tf0.device)
+    for it in range(odo.max_iterations):
+        x_c = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
+        x_s = lm.transform_to_start(flat.xyz, flat.rel, tf)
+        if it % odo.corresp_refresh_every == 0:
+            cm = corner_correspondences_fused(x_c, sharp.mask, last_corner,
+                                              odo.ring_bracket)
+            sm = surf_correspondences_fused(x_s, flat.mask, last_surf,
+                                            odo.ring_bracket)
+        tf, mat_p, degenerate, done = _gn_iteration(
+            tf, it, mat_p, degenerate, x_c, x_s, sharp, flat, last_corner,
+            last_surf, cm.j, cm.l, cm.valid, sm.j, sm.l, sm.m, sm.valid, odo,
+            compute_projector=(it == 0))
+        if bool(done):
+            break
+    return tf
+
+
 def _transform_to_end_cloud(ps: PointSet, tf: Tensor,
                             imu: ImuSweepState) -> PointSet:
     xyz = lm.transform_to_end(ps.xyz, ps.rel, tf, imu.start_rpy, imu.end_rpy,
@@ -224,10 +265,14 @@ def _transform_to_end_cloud(ps: PointSet, tf: Tensor,
 
 
 def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
-         initialized: bool) -> Tuple[OdometryState, OdometryOutputs]:
+         initialized: bool, imu: ImuSweepState | None = None,
+         static_schedule: bool = True
+         ) -> Tuple[OdometryState, OdometryOutputs]:
     """One sweep of odometry. ``initialized`` is the host's copy of
-    ``state.initialized``: False on the first sweep of a sequence."""
-    imu = ImuSweepState.zero(state.transform.device)
+    ``state.initialized``: False on the first sweep of a sequence.
+    ``imu``: this sweep's IMU summary (zero without one)."""
+    if imu is None:
+        imu = ImuSweepState.zero(state.transform.device)
     odo = cfg.odometry
     if not initialized:
         ts = state.transform_sum.clone()
@@ -244,8 +289,8 @@ def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
 
     tf0 = state.transform.clone()
     tf0[3:] += -imu.velo_from_start * cfg.registration.scan_period
-    tf = run_gn_static(feats.sharp, feats.flat, state.last_corner,
-                       state.last_surf, tf0, cfg)
+    tf = run_gauss_newton(feats.sharp, feats.flat, state.last_corner,
+                          state.last_surf, tf0, cfg, static_schedule)
 
     neg_rot = torch.stack([-tf[0], -tf[1] * odo.rot_y_fudge, -tf[2]])
     rot = lm.accumulate_rotation(state.transform_sum[lm.ROT], neg_rot)

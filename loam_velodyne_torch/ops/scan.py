@@ -5,7 +5,9 @@ near-zero filtering, vertical-angle ring binning, the halfPassed
 relative-time unwrap, and the ring bucketing as one stable sort by ring
 id (stable keeps azimuth order within a ring). The (R, P) grid is read
 from the ring-sorted cloud as R contiguous windows by kernel K1
-(``ops/grid_kernel.py``). IMU deskew during ingest is not ported yet.
+(``ops/grid_kernel.py``). With an IMU window, points are deskewed to
+the sweep-start IMU frame after their ring and time are known and before
+the bucketing (``ops/imu.py``), so only the coordinates move.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from loam_velodyne_torch.config import LidarConfig, RegistrationConfig
 from loam_velodyne_torch.ops.grid_kernel import grid_windows
+from loam_velodyne_torch.ops.imu import ImuWindow, project_to_sweep_start
 from loam_velodyne_torch.types import PointSet, RingGrid
 
 Tensor = torch.Tensor
@@ -88,11 +91,11 @@ def relative_times(swapped: Tensor, mask: Tensor,
 
 
 def ingest_sweep(raw: RawSweep, lidar: LidarConfig, reg: RegistrationConfig,
-                 imu_window=None) -> Tuple[RingGrid, PointSet]:
-    """Filter, bin, time and bucket one sweep. Returns the (R, P) ring
-    grid and the flat full-resolution cloud in ring-major azimuth order."""
-    if imu_window is not None:
-        raise NotImplementedError("IMU deskew is not ported yet")
+                 imu_window: ImuWindow | None = None
+                 ) -> Tuple[RingGrid, PointSet]:
+    """Filter, bin, time, deskew (with an IMU window) and bucket one
+    sweep. Returns the (R, P) ring grid and the flat full-resolution
+    cloud in ring-major azimuth order."""
     dev = raw.xyz.device
     n, r_rings = raw.xyz.shape[0], lidar.n_rings
     p_cap = lidar.max_points_per_ring
@@ -110,6 +113,9 @@ def ingest_sweep(raw: RawSweep, lidar: LidarConfig, reg: RegistrationConfig,
 
     rel = relative_times(swapped, raw.mask, crossing_mask=valid)
     rel = rel.clamp(0.0, 2.0)
+    if imu_window is not None:
+        swapped = project_to_sweep_start(swapped, rel * reg.scan_period,
+                                         imu_window)
 
     # Bucket by ring: one stable sort of the ring key, payload gathered.
     ring_key = torch.where(valid, ring, r_rings)

@@ -10,7 +10,8 @@ capacities (as ``chip_smoke.py`` does) and measures, in one process:
   kernel launches, host-device syncs, the summed duration of the
   device's kernels and copies, their union on the device timeline (busy
   time), and the busy share of the profiled and of the unprofiled wall
-  time;
+  time; the profiled chunk's trace is written to
+  ``build/profile_step/trace.json``;
 - one call of the odometry Jacobian (``vmap(grad)``) at 512 points.
 
 Prints one JSON object as its last line of output.
@@ -21,12 +22,12 @@ Prints one JSON object as its last line of output.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.io import synthetic
@@ -35,9 +36,13 @@ from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
 from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import extract_features
+from loam_velodyne_torch.utils import profiling
 
 CHUNK = 8
 SWEEP_CAP = 32768
+# The profiled chunk's Chrome trace (viewable in Perfetto).
+TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "profile_step")
 _LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
 
@@ -98,21 +103,19 @@ def device_activity(prof) -> dict:
             "device_busy_ms": busy / 1e3}
 
 
-def profile_chunk(engine, xyz, mask) -> dict:
-    """The chunk once without and once with the profiler, from one state."""
+def profile_chunk(engine, xyz, mask, trace_dir: str) -> dict:
+    """The chunk once without and once with the profiler, from one state;
+    the profiled run's trace goes to ``trace_dir/trace.json``."""
     dev = engine.device
-    state0, sweep0 = _clone(engine.state), engine.sweep
+    state0, cadence0 = _clone(engine.state), engine.cadence
     _sync(dev)
     t0 = time.perf_counter()
     engine.run_chunk(xyz, mask)
     _sync(dev)
     plain_s = time.perf_counter() - t0
 
-    engine.state, engine.sweep = state0, sweep0
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    engine.state, engine.cadence = state0, cadence0
+    with profiling.device_trace(trace_dir) as prof:
         t0 = time.perf_counter()
         engine.run_chunk(xyz, mask)
         _sync(dev)
@@ -154,7 +157,7 @@ def jacobian_ms(dev: torch.device, n: int = 512, reps: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def run(dev: torch.device, cfg: LoamConfig, cap: int) -> dict:
+def run(dev: torch.device, cfg: LoamConfig, cap: int, trace_dir: str) -> dict:
     """Warm up on one chunk, time the stages of the next two sweeps, then
     profile the chunk that follows the warm-up."""
     xyz, mask, _ = synthetic.bench_sequence(2 * CHUNK, cfg.lidar, cap)
@@ -169,7 +172,7 @@ def run(dev: torch.device, cfg: LoamConfig, cap: int) -> dict:
             stages[kind] = stage_times(_clone(engine.state), raw, cfg,
                                        kind == "mapping")
     out = {"stages_ms": stages}
-    out["chunk"] = profile_chunk(engine, xyz[CHUNK:], mask[CHUNK:])
+    out["chunk"] = profile_chunk(engine, xyz[CHUNK:], mask[CHUNK:], trace_dir)
     out["jacobian_512_ms"] = jacobian_ms(dev)
     return out
 
@@ -182,7 +185,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     result = {"card": card, "torch": torch.__version__}
     result.update(run(torch.device("cuda:0"), LoamConfig.preset("VLP-16"),
-                      SWEEP_CAP))
+                      SWEEP_CAP, TRACE_DIR))
     print(json.dumps(result))
 
 

@@ -158,7 +158,7 @@ def test_run_chunk_rejects_misaligned_chunks():
         teng.run_chunk(teng.EngineState.create(cfg, "cpu"), raws, cfg)
     with pytest.raises(ValueError):
         teng.step(teng.EngineState.create(cfg, "cpu"),
-                  TRaw(raws.xyz[0], raws.mask[0]), cfg, "on", initialized=False)
+                  TRaw(raws.xyz[0], raws.mask[0]), cfg, "on", teng.Cadence())
 
 
 def _poses(seed, n=64):

@@ -6,7 +6,9 @@ A subprocess installs an import hook that refuses ``jax``, ``jaxlib``
 and ``loam_velodyne_tpu`` before importing anything; a stray import,
 including one inside a function, then fails. Besides importing every
 module, it drives chip_smoke's replay on the CPU at a tiny size: the
-simulated sequence, the engine (every stage) and the ATE.
+simulated sequence, the engine (every stage) and the ATE; and the
+per-sweep driver with an IMU tracker through process_sweep, run_live,
+a checkpoint round trip and registered_cloud.
 """
 
 import pathlib
@@ -24,13 +26,18 @@ MODULES = [
     "loam_velodyne_torch.eval.metrics",
     "loam_velodyne_torch.io",
     "loam_velodyne_torch.io.synthetic",
+    "loam_velodyne_torch.io.imu",
+    "loam_velodyne_torch.io.driver",
     "loam_velodyne_torch.utils",
     "loam_velodyne_torch.ops",
     "loam_velodyne_torch.models",
     "loam_velodyne_torch.utils.math",
     "loam_velodyne_torch.utils.convert",
+    "loam_velodyne_torch.utils.checkpoint",
+    "loam_velodyne_torch.utils.profiling",
     "loam_velodyne_torch.ops.cuda_lib",
     "loam_velodyne_torch.ops.grid_kernel",
+    "loam_velodyne_torch.ops.imu",
     "loam_velodyne_torch.ops.scan",
     "loam_velodyne_torch.ops.voxel",
     "loam_velodyne_torch.ops.greedy_kernel",
@@ -87,6 +94,32 @@ assert packed.shape == (2, 29), packed.shape
 assert bool(packed[1, 18]) and engine.sweep == 2         # mapping ran
 ate = chip_smoke.ate_rmse(packed[:, 15:18].numpy(), gt, align=True)
 assert ate == ate
+
+import os, tempfile
+import numpy as np
+from loam_velodyne_torch.io.driver import LoamDriver
+from loam_velodyne_torch.io.imu import ImuTracker
+sweeps = [xyz[i][mask[i]] for i in range(2)]
+
+def driver(**kw):
+    drv = LoamDriver(cfg, device="cpu", sweep_capacity=256, system_delay=0, **kw)
+    drv.imu_tracker = ImuTracker()
+    for k in range(40):
+        t = -0.1 + 0.01 * k
+        drv.imu_tracker.push_state(t, (0.02 * np.sin(7 * t), 0.0, 0.0), (0.05, 0.0, 0.0))
+    return drv
+
+ckpt = os.path.join(tempfile.mkdtemp(), "state.npz")
+a = driver()
+for pts, stamp in zip(sweeps, (0.0, 0.1)):
+    a.process_sweep(pts, stamp)
+b = driver(checkpoint_path=ckpt, checkpoint_every=2)
+b.run_live(sweeps, (0.0, 0.1))
+assert np.array_equal(np.stack(a.trajectory), np.stack(b.trajectory))
+c = driver(checkpoint_path=ckpt)
+assert c.resume() and c.resumed_sweeps == 2
+reg_xyz, reg_mask = c.registered_cloud(sweeps[1], 0.1)
+assert reg_mask.any() and np.isfinite(reg_xyz).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not loaded, loaded
 print("ok")
