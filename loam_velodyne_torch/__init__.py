@@ -15,5 +15,12 @@ A kernel wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors. The package stands alone: its configuration
 (``config.py``), trajectory metric (``eval/metrics.py``) and sweep
 simulator (``io/synthetic.py``) are its own copies of the JAX
-package's, pinned equal to them by tests/test_torch_config.py.
+package's, pinned equal to them by tests/test_torch_config.py; so are
+its readers (``io/rosbag.py``, ``io/pcap.py``, ``io/kitti.py``,
+``io/pcd.py``, with the native library built from
+``native/loamio.cc``), held to the JAX readers by
+tests/test_torch_io.py, and its command, ``cli.py`` (``loam-torch``),
+held to the JAX command by tests/test_torch_cli.py.
 """
+
+__version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Absolute trajectory error (host-side, numpy), as
-``loam_velodyne_tpu/eval/metrics.py`` computes it."""
+"""Trajectory error (host-side, numpy): the absolute (ATE) and relative
+(RPE) errors, as ``loam_velodyne_tpu/eval/metrics.py`` computes them."""
 
 from __future__ import annotations
 
@@ -29,4 +29,15 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
     if align:
         est = umeyama_align(est, gt)
     err = est - gt
+    return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))
+
+
+def rpe_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
+             delta: int = 1) -> float:
+    """Relative pose (translation-only) error over a frame delta, meters."""
+    est = np.asarray(est_positions, np.float64)
+    gt = np.asarray(gt_positions, np.float64)
+    de = est[delta:] - est[:-delta]
+    dg = gt[delta:] - gt[:-delta]
+    err = de - dg
     return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))

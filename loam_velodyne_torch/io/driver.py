@@ -7,8 +7,9 @@ per sweep, telemetry into ``Metrics``, the surround map on its cadence
 (built on the device, read to the host only when asked for), the
 archive compaction at 3/4 of the pool, checkpoints (explicit and every
 N sweeps) with resume, the chunked throughput mode, the pipelined live
-loop and the TUM export. It drives ``models/engine.py::Engine`` on the
-per-sweep path (``mapping_mode="auto"``, the dynamic GN schedules).
+loop, the rosbag replay (``run_bag``) and the TUM export. It drives
+``models/engine.py::Engine`` on the per-sweep path
+(``mapping_mode="auto"``, the dynamic GN schedules).
 
 The live loop pipelines one sweep deep: it dispatches sweep N, copies
 its packed row into pinned host memory behind a CUDA event, stages
@@ -28,6 +29,7 @@ import torch
 
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.io.imu import ImuTracker
+from loam_velodyne_torch.io.rosbag import read_messages
 from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models.engine import Engine, EngineOutputs, EngineState
 from loam_velodyne_torch.ops.imu import ImuWindow
@@ -331,6 +333,32 @@ class LoamDriver:
         if not self.trajectory:
             return np.zeros((0, 3))
         return np.stack(self.trajectory)[:, 3:]
+
+    def run_bag(self, path: str, cloud_topic: str = "/velodyne_points",
+                imu_topic: str = "/imu/data", native: bool = True
+                ) -> np.ndarray:
+        """Replay a rosbag end to end in message order: IMU messages feed
+        a new IMU tracker, each cloud is a sweep stamped with its message
+        time (the equivalent of the reference's 4-node launch over
+        ``rosbag play``). After ``resume()`` the clouds the restored
+        state already consumed (the startup delay and the processed
+        sweeps) are skipped; the IMU messages before them still warm the
+        tracker. Returns the fused positions (K, 3)."""
+        self.imu_tracker = ImuTracker(self.cfg.registration.imu_history_size)
+        skip = 0
+        if self.resumed_sweeps and not self.trajectory:
+            skip = self._delay_left + self.resumed_sweeps
+            self._delay_left = 0
+        for kind, stamp, payload in read_messages(
+                path, cloud_topic=cloud_topic, imu_topic=imu_topic,
+                native=native):
+            if kind == "imu":
+                self.imu_tracker.push_raw(stamp, payload[:4], payload[4:7])
+            elif skip > 0:
+                skip -= 1
+            else:
+                self.process_sweep(payload, stamp)
+        return self.positions()
 
     def registered_cloud(self, pts: np.ndarray, stamp: Optional[float] = None):
         """The sweep just processed, at full resolution, in the map frame

@@ -225,3 +225,18 @@ def bench_sequence(n_sweeps: int, lidar: LidarConfig = VLP16, cap: int = 32768,
         k = min(len(pts), cap)
         xyz[i, :k], mask[i, :k] = pts[:k], True
     return xyz, mask, gt
+
+
+def imu_stream(n_sweeps: int, rate_hz: float = 100.0, t0: float = -0.2,
+               gain: float = 1.0):
+    """A rocking-attitude IMU stream for the sweeps of ``bench_sequence``:
+    (stamp, (roll, pitch, yaw), swapped gravity-free acceleration)
+    samples from ``t0`` to 0.2 s past the last sweep; a copy of the
+    stream of tests/test_oracle.py."""
+    out = []
+    for t in np.arange(t0, n_sweeps * 0.1 + 0.2, 1.0 / rate_hz):
+        out.append((float(t), (gain * 0.02 * np.sin(7.0 * t),
+                               gain * 0.015 * np.cos(5.0 * t), 0.0),
+                    (gain * 0.05 * np.sin(3.0 * t),
+                     gain * 0.02 * np.cos(4.0 * t), 0.0)))
+    return out

@@ -1,11 +1,12 @@
 """The four kernels' main-path inputs, bounds and timers on one CUDA card.
 
-Builds each kernel's inputs at the VLP-16 main-path shapes from a numpy
-seed, computes each call's bound on an H100 from those inputs, and times
-a callable with CUDA events: back-to-back calls (host time included),
-calls captured in a CUDA graph (the device's time with the host out of
-the way), the host's enqueue time, and the device operations a call puts
-on the card (``torch.profiler``). ``chip_smoke.py`` uses it for its
+Builds each kernel's inputs at the main-path shapes of a lidar preset
+(VLP-16 by default) from a numpy seed, computes each call's bound on an
+H100 from those inputs, and times a callable with CUDA events:
+back-to-back calls (host time included), calls captured in a CUDA graph
+(the device's time with the host out of the way), the host's enqueue
+time, and the device operations a call puts on the card
+(``torch.profiler``). ``chip_smoke.py`` uses it for its
 kernel phase. Importing the module builds no kernel.
 """
 
@@ -19,6 +20,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.ops import greedy_kernel
 
 # Published H100 SXM peaks: float32 outside the tensor cores, HBM3.
@@ -26,56 +28,73 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_DISTANCE = 9    # 3 sub, 3 mul, 2 add, 1 compare against the best
 
-SWEEP_CAP = 32768       # VLP-16 sweep rows (K1)
-P_CAP = 2048            # ring capacity (K1)
-N_RINGS = 16
-BRACKET = 2.5
 
-
-def main_path_inputs(dev: torch.device, seed: int = 0) -> dict:
-    """Each case's wrapper arguments at the VLP-16 main-path shapes:
-    K1 16 rings x 4 columns x P=2048 of a 32,768-row sweep; K2 96 (ring,
-    region) rows x 384, corner (96 steps) and flat (64); K3 corner 256
-    queries x 1,920 rows and surf 384 x 8,192; K4 16 (corner) and 32
-    (surf) groups of 128 queries x windows of 1,024 rows."""
+def main_path_inputs(dev: torch.device, seed: int = 0,
+                     preset: str = "VLP-16") -> dict:
+    """Each case's wrapper arguments at the main-path shapes of a lidar
+    preset (``LoamConfig.preset(preset)`` at datasheet capacities). At
+    VLP-16: K1 16 rings x 4 columns x P=2048 of a 32,768-row sweep; K2
+    96 (ring, region) rows x 384, corner (96 steps) and flat (64); K3
+    corner 256 queries x 1,920 rows and surf 384 x 8,192; K4 16 (corner)
+    and 32 (surf) groups of 128 queries x windows of 1,024 rows. At
+    HDL-64E: K1 64 x 4 x 2,304 of 147,456 rows; K2 384 rows x 512; K3
+    768 x 7,680 and 1,536 x 16,384; K4 the same (the mapping capacities
+    do not depend on the preset)."""
+    cfg = LoamConfig.preset(preset)
+    reg, caps, m = cfg.registration, cfg.capacities, cfg.mapping
+    n_rings, p_cap = cfg.lidar.n_rings, cfg.lidar.max_points_per_ring
+    sweep_cap = caps.full_cloud
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     out = {}
 
-    cols = t(rng.normal(size=(4, SWEEP_CAP + P_CAP)).astype(np.float32))
-    starts = np.sort(rng.integers(0, SWEEP_CAP, size=N_RINGS)).astype(np.int32)
-    starts[0], starts[-1] = 0, SWEEP_CAP
-    out["grid"] = (cols, t(starts), P_CAP)
+    cols = t(rng.normal(size=(4, sweep_cap + p_cap)).astype(np.float32))
+    starts = np.sort(rng.integers(0, sweep_cap, size=n_rings)).astype(np.int32)
+    starts[0], starts[-1] = 0, sweep_cap
+    out["grid"] = (cols, t(starts), p_cap)
 
-    rows, w = 96, 384
+    # One row per (ring, region) window, as wide as the engine's windows
+    # (ops/features.py::_windows: the longest region plus the +-C spill).
+    rows = n_rings * reg.n_feature_regions
+    c, j = reg.curvature_region, reg.n_feature_regions
+    max_len = (p_cap - 1 - 2 * c + j - 1) // j + 1
+    w = min(-(-(max_len + 2 * c) // 128) * 128, p_cap)
     curv = t(rng.exponential(0.1, size=(rows, w)).astype(np.float32))
     picked0 = t(rng.random((rows, w)) < 0.1)
     left = t(rng.integers(0, 6, size=(rows, w)).astype(np.int32))
     right = t(rng.integers(0, 6, size=(rows, w)).astype(np.int32))
     in_region = t(rng.random((rows, w)) < 0.9)
-    for name, corner, steps, quota, sharp in (("greedy_corner", True, 96, 20, 2),
-                                              ("greedy_flat", False, 64, 4, 0)):
+    for name, corner, steps, quota, sharp in (
+            ("greedy_corner", True, reg.corner_scan_cap,
+             reg.max_corner_less_sharp, reg.max_corner_sharp),
+            ("greedy_flat", False, reg.flat_scan_cap, reg.max_surface_flat, 0)):
         scores = torch.where(in_region & ~picked0, curv if corner else -curv,
                              float("-inf"))
         top, cand = torch.sort(scores, dim=1, descending=True, stable=True)
         out[name] = (curv, cand[:, :steps].to(torch.int32).contiguous(),
                      torch.isfinite(top[:, :steps]).contiguous(), picked0,
-                     left, right, 0.1, quota, sharp, corner)
+                     left, right, reg.surface_curvature_threshold, quota,
+                     sharp, corner)
 
-    for name, surf, nq, m in (("corresp_corner", False, 256, 1920),
-                              ("corresp_surf", True, 384, 8192)):
+    for name, surf, nq, n_ref in (("corresp_corner", False, caps.sharp,
+                                   caps.less_sharp),
+                                  ("corresp_surf", True, caps.flat,
+                                   caps.less_flat)):
         q = t((rng.normal(size=(nq, 3)) * 5).astype(np.float32))
-        ref = t((rng.normal(size=(m, 3)) * 5).astype(np.float32))
-        ring = t(rng.integers(0, N_RINGS, size=m).astype(np.int32))
-        mask = rng.random(m) < 0.8
-        mask[m // 2:] = False                      # padded tail, as in use
-        out[name] = (q, ref, ring, t(mask), BRACKET, surf)
+        ref = t((rng.normal(size=(n_ref, 3)) * 5).astype(np.float32))
+        ring = t(rng.integers(0, n_rings, size=n_ref).astype(np.int32))
+        mask = rng.random(n_ref) < 0.8
+        mask[n_ref // 2:] = False                  # padded tail, as in use
+        out[name] = (q, ref, ring, t(mask), cfg.odometry.ring_bracket, surf)
 
-    for name, tg in (("knn_corner", 16), ("knn_surf", 32)):
-        cloud = (rng.normal(size=(tg * 1024, 3)) * 5).astype(np.float32)
+    win, g = m.knn_window, m.knn_group
+    for name, cap in (("knn_corner", m.corner_stack_capacity),
+                      ("knn_surf", m.surf_stack_capacity)):
+        tg = cap // g
+        cloud = (rng.normal(size=(tg * win, 3)) * 5).astype(np.float32)
         cloud = cloud[np.argsort(cloud[:, 2], kind="stable")]
-        windows = cloud.reshape(tg, 1024, 3)
-        qg = windows[:, ::8] + rng.normal(size=(tg, 128, 3)) * 0.3
+        windows = cloud.reshape(tg, win, 3)
+        qg = windows[:, ::win // g] + rng.normal(size=(tg, g, 3)) * 0.3
         out[name] = (t(qg.astype(np.float32)), t(windows), 5)
     return out
 
@@ -88,7 +107,7 @@ def work(case: str, args: tuple) -> tuple[int, int]:
     """(operations, bytes) a call needs on these inputs: each input byte
     read once, each output byte written once, and only the operations
     this data asks for."""
-    if case == "grid":
+    if case.startswith("grid"):
         cols, starts, p = args
         npad = cols.shape[1]
         s = np.clip(starts.cpu().numpy().astype(np.int64), 0, npad - p)

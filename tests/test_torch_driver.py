@@ -433,7 +433,7 @@ def test_jax_driver_imu_ate_on_the_smoke_input(capsys):
                                                         chip_smoke.SWEEP_CAP)
     drv = JDriver(cfg, sweep_capacity=chip_smoke.SWEEP_CAP, system_delay=0)
     drv.imu_tracker = ImuTracker(cfg.registration.imu_history_size)
-    for t, rpy, acc in chip_smoke.imu_stream(n):
+    for t, rpy, acc in chip_smoke.synthetic.imu_stream(n):
         drv.imu_tracker.push_state(t, rpy, acc)
     for k in range(n):
         drv.process_sweep(xyz[k][mask[k]], 0.1 * k)

@@ -41,6 +41,7 @@ from loam_velodyne_tpu.ops import features as jfeat
 from loam_velodyne_tpu.ops import imu as jimu
 from loam_velodyne_tpu.ops import scan as jscan
 from loam_velodyne_torch.io.imu import ImuTracker as TTracker
+from loam_velodyne_torch.io.synthetic import imu_stream
 from loam_velodyne_torch.models import engine as teng
 from loam_velodyne_torch.models import mapping as tmap
 from loam_velodyne_torch.models import odometry as todo
@@ -55,18 +56,6 @@ from test_torch_mapping import map_config
 
 def _t(a):
     return torch.from_numpy(np.array(a))
-
-
-def imu_stream(n_sweeps, rate_hz=100.0, t0=-0.2, gain=1.0):
-    """The rocking-attitude IMU samples of tests/test_oracle.py:
-    (stamp, (roll, pitch, yaw), swapped gravity-free acceleration)."""
-    out = []
-    for t in np.arange(t0, n_sweeps * 0.1 + 0.2, 1.0 / rate_hz):
-        out.append((float(t), (gain * 0.02 * np.sin(7.0 * t),
-                               gain * 0.015 * np.cos(5.0 * t), 0.0),
-                    (gain * 0.05 * np.sin(3.0 * t), gain * 0.02 * np.cos(4.0 * t),
-                     0.0)))
-    return out
 
 
 def trackers(n_sweeps=8, gain=1.0):

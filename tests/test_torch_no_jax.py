@@ -8,7 +8,10 @@ including one inside a function, then fails. Besides importing every
 module, it drives chip_smoke's replay on the CPU at a tiny size: the
 simulated sequence, the engine (every stage) and the ATE; and the
 per-sweep driver with an IMU tracker through process_sweep, run_live,
-a checkpoint round trip and registered_cloud.
+a checkpoint round trip and registered_cloud; and the loam-torch
+command (``cli.main(["run", "--device", "cpu", ...])``) on a tiny bag
+and a tiny wire-format pcap. The modules are found by walking the
+package, so a module added later is checked too.
 """
 
 import pathlib
@@ -18,43 +21,18 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-MODULES = [
-    "loam_velodyne_torch",
-    "loam_velodyne_torch.types",
-    "loam_velodyne_torch.config",
-    "loam_velodyne_torch.eval",
-    "loam_velodyne_torch.eval.metrics",
-    "loam_velodyne_torch.io",
-    "loam_velodyne_torch.io.synthetic",
-    "loam_velodyne_torch.io.imu",
-    "loam_velodyne_torch.io.driver",
-    "loam_velodyne_torch.utils",
-    "loam_velodyne_torch.ops",
-    "loam_velodyne_torch.models",
-    "loam_velodyne_torch.utils.math",
-    "loam_velodyne_torch.utils.convert",
-    "loam_velodyne_torch.utils.checkpoint",
-    "loam_velodyne_torch.utils.profiling",
-    "loam_velodyne_torch.ops.cuda_lib",
-    "loam_velodyne_torch.ops.grid_kernel",
-    "loam_velodyne_torch.ops.imu",
-    "loam_velodyne_torch.ops.scan",
-    "loam_velodyne_torch.ops.voxel",
-    "loam_velodyne_torch.ops.greedy_kernel",
-    "loam_velodyne_torch.ops.features",
-    "loam_velodyne_torch.ops.corresp_kernel",
-    "loam_velodyne_torch.ops.neighbors",
-    "loam_velodyne_torch.ops.fit",
-    "loam_velodyne_torch.ops.knn_kernel",
-    "loam_velodyne_torch.models.odometry",
-    "loam_velodyne_torch.models.mapping",
-    "loam_velodyne_torch.models.fusion",
-    "loam_velodyne_torch.models.engine",
-    "loam_velodyne_torch.tools",
-    "loam_velodyne_torch.tools.profile_step",
-    "loam_velodyne_torch.tools.kernel_times",
-    "chip_smoke",
-]
+
+def port_modules() -> list:
+    """Every module of the package (found by walking it, so that modules
+    added later are covered too), and chip_smoke."""
+    import pkgutil
+
+    import loam_velodyne_torch
+    names = ["loam_velodyne_torch"] + [
+        m.name for m in pkgutil.walk_packages(loam_velodyne_torch.__path__,
+                                              "loam_velodyne_torch.")]
+    return names + ["chip_smoke"]
+
 
 _GUARD = """
 import importlib, sys
@@ -121,26 +99,60 @@ assert c.resume() and c.resumed_sweeps == 2
 reg_xyz, reg_mask = c.registered_cloud(sweeps[1], 0.1)
 assert reg_mask.any() and np.isfinite(reg_xyz).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+
+# The loam-torch command on the CPU: a tiny bag with an IMU and a tiny
+# wire-format pcap.
+import contextlib, io, json
+from loam_velodyne_torch import cli
+from loam_velodyne_torch.io.rosbag import BagWriter
+from loam_velodyne_torch.tools import make_validation_pcap
+d = tempfile.mkdtemp()
+bag = os.path.join(d, "tiny.bag")
+with BagWriter(bag, compression="lz4") as w:
+    for k, pts in enumerate(sweeps):
+        w.write_imu("/imu/data", 0.1 * k, (0, 0, 0, 1), (0.0, 0.0, 9.81))
+        w.write_cloud("/velodyne_points", 0.1 * k, pts)
+cap = os.path.join(d, "tiny.pcap")
+make_validation_pcap.write_validation_pcap(cap, 2, n_az=48)
+first = ("neighborhood", "recenter_margin")    # shrink before the grid
+sets = []
+for section in ("lidar", "registration", "odometry", "mapping", "capacities"):
+    items = sorted(vars(getattr(cfg, section)).items(),
+                   key=lambda kv: kv[0] not in first)
+    for key, value in items:
+        raw = value if isinstance(value, str) else json.dumps(value)
+        sets += ["--set", f"{section}.{key}={raw}"]
+for source, path, n in (("bag", bag, 2), ("pcap", cap, 2)):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["run", "--device", "cpu", "--source", source, "--path", path,
+                  "--out-traj", os.path.join(d, source + ".tum"), *sets])
+    rep = json.loads(out.getvalue())
+    assert rep["sweeps"] == n, rep
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not loaded, loaded
 print("ok")
 """
 
 
 def test_port_imports_without_jax():
-    res = subprocess.run([sys.executable, "-c", _GUARD, *MODULES], cwd=ROOT,
+    res = subprocess.run([sys.executable, "-c", _GUARD, *port_modules()], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
 
 
 def test_every_port_module_is_checked():
-    """The list above covers every module file of the package."""
+    """The walk covers every module file of the package."""
     pkg = ROOT / "loam_velodyne_torch"
     found = {".".join(p.relative_to(ROOT).with_suffix("").parts)
              for p in pkg.rglob("*.py")}
     found = {m[:-len(".__init__")] if m.endswith(".__init__") else m
              for m in found}
-    assert found <= set(MODULES), sorted(found - set(MODULES))
+    walked = set(port_modules())
+    assert found <= walked, sorted(found - walked)
+    assert {"loam_velodyne_torch.cli", "loam_velodyne_torch.io.rosbag",
+            "loam_velodyne_torch.io.live"} <= walked
 
 
 def test_no_source_imports_jax():
