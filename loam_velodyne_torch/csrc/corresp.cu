@@ -38,6 +38,15 @@
 // a second launch that reads j from pass 1's key; a third unpacks the
 // keys. One call: a memset and three kernels. ptxas (sm_90a, -O3):
 // 26-32 registers per kernel, no spills.
+//
+// Lane form (the batched replay): B lanes of (Q, 3) queries against
+// their own (M, 3) reference, ring and mask. A lane's queries see only
+// its own reference, so lanes cannot fold into Q: the grid gains a lane
+// axis (z), every pointer moves to its lane, and the keys are per
+// (lane, query), laid out (B, 3, Q). The chunk length is picked for
+// about eight blocks per SM over all lanes: at B = 8, corner 30 chunks
+// of 64 rows x 4 tiles x 8 lanes = 960 blocks, surf 22 chunks of 384
+// rows x 6 tiles x 8 lanes = 1,056. The single-lane call passes B = 1.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -82,6 +91,12 @@ __global__ void nearest_kernel(const float* __restrict__ q,
                                Key* __restrict__ key_j, int nq, int m,
                                int chunk) {
     extern __shared__ float4 s_ref[];
+    const size_t lane = blockIdx.z;
+    q += lane * 3 * nq;
+    ref += lane * 3 * m;
+    ring += lane * m;
+    mask += lane * m;
+    key_j += lane * 3 * nq;
     const int c0 = blockIdx.x * chunk;
     const int n = min(chunk, m - c0);
     stage(s_ref, ref, ring, mask, c0, n);
@@ -110,6 +125,12 @@ __global__ void bracket_kernel(const float* __restrict__ q,
                                Key* __restrict__ keys, int nq, int m,
                                int chunk, float bracket) {
     extern __shared__ float4 s_ref[];
+    const size_t lane = blockIdx.z;
+    q += lane * 3 * nq;
+    ref += lane * 3 * m;
+    ring += lane * m;
+    mask += lane * m;
+    keys += lane * 3 * nq;
     const int c0 = blockIdx.x * chunk;
     const int n = min(chunk, m - c0);
     stage(s_ref, ref, ring, mask, c0, n);
@@ -158,30 +179,36 @@ __global__ void unpack_kernel(const Key* __restrict__ keys,
                               int* __restrict__ j, float* __restrict__ dj,
                               int* __restrict__ l, float* __restrict__ dl,
                               int* __restrict__ mm, float* __restrict__ dm,
-                              int nq) {
-    const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-    if (qi >= nq) return;
-    unpack(keys[qi], j + qi, dj + qi);
-    unpack(keys[nq + qi], l + qi, dl + qi);
-    unpack(keys[2 * nq + qi], mm + qi, dm + qi);
+                              int nq, int lanes) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;   // (lane, query)
+    if (t >= lanes * nq) return;
+    const int lane = t / nq, qi = t - lane * nq;
+    const Key* k = keys + (size_t)lane * 3 * nq;
+    unpack(k[qi], j + t, dj + t);
+    unpack(k[nq + qi], l + t, dl + t);
+    unpack(k[2 * nq + qi], mm + t, dm + t);
 }
 }  // namespace
 
-// keys: scratch of 3 * nq 64-bit words (j, l, m keys).
+// keys: scratch of lanes * 3 * nq 64-bit words (each lane's j, l, m
+// keys); the outputs are (lanes, nq). The single-lane call passes
+// lanes = 1.
 extern "C" int loam_corresp(const float* q, const float* ref, const int* ring,
                             const unsigned char* mask, Key* keys, int* j,
                             float* dj, int* l, float* dl, int* mm, float* dm,
-                            int nq, int m, float bracket, int surf_mode,
-                            cudaStream_t stream) {
-    if (nq == 0) return 0;
-    cudaError_t e = cudaMemsetAsync(keys, 0xFF, sizeof(Key) * 3 * nq, stream);
+                            int lanes, int nq, int m, float bracket,
+                            int surf_mode, cudaStream_t stream) {
+    if (nq == 0 || lanes == 0) return 0;
+    cudaError_t e = cudaMemsetAsync(keys, 0xFF,
+                                    sizeof(Key) * 3 * nq * (size_t)lanes,
+                                    stream);
     if (e != cudaSuccess) return (int)e;
     if (m > 0) {
         const int tiles = (nq + kTile - 1) / kTile;
-        const int want = (kTargetBlocks + tiles - 1) / tiles;
+        const int want = (kTargetBlocks + tiles * lanes - 1) / (tiles * lanes);
         int chunk = ((m + want - 1) / want + 31) / 32 * 32;
         if (chunk > kMaxChunk) chunk = kMaxChunk;
-        const dim3 grid((m + chunk - 1) / chunk, tiles);
+        const dim3 grid((m + chunk - 1) / chunk, tiles, lanes);
         const size_t smem = sizeof(float4) * chunk;
         nearest_kernel<<<grid, kTile, smem, stream>>>(q, ref, ring, mask, keys,
                                                       nq, m, chunk);
@@ -195,7 +222,7 @@ extern "C" int loam_corresp(const float* q, const float* ref, const int* ring,
         }
         if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
-    unpack_kernel<<<(nq + 255) / 256, 256, 0, stream>>>(keys, j, dj, l, dl, mm,
-                                                        dm, nq);
+    unpack_kernel<<<(lanes * nq + 255) / 256, 256, 0, stream>>>(
+        keys, j, dj, l, dl, mm, dm, nq, lanes);
     return (int)cudaGetLastError();
 }

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import grad, vmap
 
 from loam_velodyne_torch.config import LoamConfig, MappingConfig
@@ -145,15 +146,19 @@ def _set_rows_drop(buf: Tensor, idx: Tensor, vals: Tensor) -> Tensor:
 
 def _histogram(ids: Tensor, weights: Tensor, n_bins: int) -> Tensor:
     out = torch.zeros(n_bins, dtype=torch.int32, device=ids.device)
-    return out.scatter_add_(0, ids.long(), _i32(weights))
+    return out.scatter_add(0, ids.long(), _i32(weights))
+
+
+def _run_starts(key_sorted: Tensor) -> Tensor:
+    """Whether each row starts a run of equal sorted keys."""
+    return F.pad(key_sorted[1:] != key_sorted[:-1], (1, 0), value=True)
 
 
 def _segment_rank(key_sorted: Tensor) -> Tensor:
     """Rank of each row within its run of equal sorted keys."""
     n = key_sorted.shape[0]
     i = torch.arange(n, dtype=torch.int32, device=key_sorted.device)
-    seg_start = torch.ones(n, dtype=torch.bool, device=key_sorted.device)
-    seg_start[1:] = key_sorted[1:] != key_sorted[:-1]
+    seg_start = _run_starts(key_sorted)
     return i - torch.cummax(torch.where(seg_start, i, 0), 0).values
 
 
@@ -270,8 +275,7 @@ def scatter_into_cubes(cube_xyz: Tensor, cube_cnt: Tensor, pts: Tensor,
                              ).reshape(nc, cap, 3)
     added = _histogram(sidx_s, keep, nc + 1)
     new_cnt = (cube_cnt + added[:nc]).clamp(max=cap)
-    keep_in = torch.zeros(n, dtype=torch.bool, device=dev)
-    keep_in[order] = keep
+    keep_in = torch.zeros(n, dtype=torch.bool, device=dev).scatter(0, order, keep)
     return new_xyz, _i32(new_cnt), added[:nc] > 0, keep_in, ok
 
 
@@ -370,9 +374,7 @@ def compact_archive(pool, m: MappingConfig):
     key = (((~valid).long() << 40) + (kind.long() << 39) + (cell[:, 0] << 26)
            + (cell[:, 1] << 13) + cell[:, 2])
     key_s, order = torch.sort(key, stable=True)
-    first = torch.ones(a, dtype=torch.bool, device=dev)
-    first[1:] = key_s[1:] != key_s[:-1]
-    keep = valid[order] & first
+    keep = valid[order] & _run_starts(key_s)
     _, order2 = torch.sort(_i32(~keep), stable=True)
     order = order[order2]
     n = keep.sum(dtype=torch.int32)

@@ -18,6 +18,12 @@ across blocks (240 blocks for corner, 768 for surf) and reduces each
 query's minimum with atomicMin on a packed 64-bit (distance bits,
 column) key, exact and in any block order; masked rows are skipped in
 the kernel, so a call is one memset and three kernels.
+
+Lane form (``corresp_search_lanes``, the one launch path; a
+single-lane call is B = 1): B lanes of queries, each against its own
+reference, in one call; the kernel's grid has a lane axis and its keys
+are per (lane, query). A lane's queries must not
+see another lane's rows, so the lanes cannot fold into the queries.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib
+from loam_velodyne_torch.ops import cuda_lib, lanes
 
 SENTINEL = 1e8          # masked / padding candidate coordinate
 PAD_RING = 1 << 20      # ring of sentinel rows: never inside a bracket
@@ -93,32 +99,68 @@ def corresp_search_plain(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     return _normalize(_search_plain(query_xyz, ref, ring, bracket, surf_mode))
 
 
+def corresp_search_lanes_plain(query_xyz: Tensor, ref_xyz: Tensor,
+                               ref_ring: Tensor, ref_mask: Tensor,
+                               bracket: float, surf_mode: bool
+                               ) -> Tuple[Tensor, ...]:
+    """Plain twin of the lane form: the plain version lane by lane."""
+    return lanes.per_lane(corresp_search_plain, query_xyz, ref_xyz, ref_ring,
+                          ref_mask, bracket, surf_mode)
+
+
+def corresp_search_lanes(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
+                         ref_mask: Tensor, bracket: float, surf_mode: bool
+                         ) -> Tuple[Tensor, ...]:
+    """Lane form: query (B, Q, 3), ref (B, M, 3), ring (B, M), mask
+    (B, M); each lane's queries against its own reference, one call with
+    a lane axis in the kernel's grid. Returns (j, dj, l, dl, m, dm), each
+    (B, Q)."""
+    if (query_xyz.dim() != 3 or query_xyz.shape[-1] != 3
+            or ref_xyz.dim() != 3 or ref_xyz.shape[-1] != 3
+            or query_xyz.shape[0] != ref_xyz.shape[0]
+            or ref_ring.shape != ref_xyz.shape[:-1]
+            or ref_mask.shape != ref_xyz.shape[:-1]):
+        raise ValueError("corresp_search: query (Q, 3), ref (M, 3), ring and "
+                         "mask (M,) expected, with one leading lane axis in "
+                         "the lane form")
+    if (query_xyz.dtype != torch.float32 or ref_xyz.dtype != torch.float32
+            or ref_ring.dtype != torch.int32 or ref_mask.dtype != torch.bool):
+        raise TypeError("corresp_search: unexpected dtypes")
+    if query_xyz.device.type == "cpu":
+        return corresp_search_lanes_plain(query_xyz, ref_xyz, ref_ring,
+                                          ref_mask, bracket, surf_mode)
+    args = tuple(t.contiguous() for t in (query_xyz, ref_xyz, ref_ring,
+                                          ref_mask))
+    cuda_lib.check_cuda("corresp_search", *args)
+    dev = query_xyz.device
+    b, nq, m = query_xyz.shape[0], query_xyz.shape[1], ref_xyz.shape[1]
+    out = tuple(torch.empty((b, nq), dtype=dt, device=dev)
+                for dt in (torch.int32, torch.float32) * 3)
+    keys = torch.empty(3 * nq * b, dtype=torch.int64, device=dev)  # scratch
+    cuda_lib.launch("loam_corresp", dev, *(t.data_ptr() for t in args),
+                    keys.data_ptr(), *(t.data_ptr() for t in out), b, nq, m,
+                    float(bracket), int(surf_mode))
+    corresp_search.launches += 1
+    return out
+
+
+lane_op = lanes.LaneOp(
+    "corresp_search",
+    "(Tensor query_xyz, Tensor ref_xyz, Tensor ref_ring, Tensor ref_mask, "
+    "float bracket, bool surf_mode) -> (Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)",
+    corresp_search_lanes)
+
+
 def corresp_search(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
                    ref_mask: Tensor, bracket: float, surf_mode: bool
                    ) -> Tuple[Tensor, ...]:
     """Run the fused search. query (Q, 3) float32; ref (M, 3) float32,
     ring (M,) int32, mask (M,) bool. Returns (j, dj, l, dl, m, dm), each
-    (Q,); rows with no real candidate come back as (0, inf)."""
-    if query_xyz.dim() != 2 or query_xyz.shape[1] != 3 or ref_xyz.dim() != 2:
-        raise ValueError("corresp_search: query (Q, 3), ref (M, 3) expected")
-    if (query_xyz.dtype != torch.float32 or ref_xyz.dtype != torch.float32
-            or ref_ring.dtype != torch.int32 or ref_mask.dtype != torch.bool):
-        raise TypeError("corresp_search: unexpected dtypes")
-    if query_xyz.device.type == "cpu":
-        return corresp_search_plain(query_xyz, ref_xyz, ref_ring, ref_mask,
-                                    bracket, surf_mode)
-    args = tuple(t.contiguous() for t in (query_xyz, ref_xyz, ref_ring,
-                                          ref_mask))
-    cuda_lib.check_cuda("corresp_search", *args)
-    nq, dev = query_xyz.shape[0], query_xyz.device
-    out = tuple(torch.empty(nq, dtype=dt, device=dev)
-                for dt in (torch.int32, torch.float32) * 3)
-    keys = torch.empty(3 * nq, dtype=torch.int64, device=dev)   # scratch
-    cuda_lib.launch("loam_corresp", dev, *(t.data_ptr() for t in args),
-                    keys.data_ptr(), *(t.data_ptr() for t in out), nq,
-                    ref_xyz.shape[0], float(bracket), int(surf_mode))
-    corresp_search.launches += 1
-    return out
+    (Q,); rows with no real candidate come back as (0, inf). The lane
+    form at B = 1, or under vmap over all lanes."""
+    return lane_op(query_xyz, ref_xyz, ref_ring, ref_mask, float(bracket),
+                   surf_mode)
 
 
 corresp_search.launches = 0

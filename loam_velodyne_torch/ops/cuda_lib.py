@@ -8,7 +8,8 @@ repository root (listed in ``.gitignore``); the library's file name
 carries a hash of the sources, so an edited kernel is rebuilt and a
 stale library is never loaded. Besides the four kernels of the pipeline
 it holds an empty kernel (``noop``), whose time in a CUDA graph is the
-launch floor the kernels are read against.
+launch floor the kernels are read against. K1's and K3's entry points
+take a lane count: B lanes in one launch (1 for the single-lane call).
 
 Flags: ``-fmad=false`` keeps ``a*b + c`` as a separate multiply and add,
 so squared distances round exactly as the plain PyTorch versions (one
@@ -40,11 +41,11 @@ _F = ctypes.c_float
 # C signature of every kernel entry point: (argtypes), all return int
 # (the cudaError_t of the launch).
 _SIGNATURES = {
-    "loam_grid_windows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "loam_grid_windows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "loam_greedy_pick_rows": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _F, _I, _I, _I, _P],
     "loam_corresp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _F, _I, _P],
+                     _I, _I, _I, _F, _I, _P],
     "loam_grouped_window_knn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "loam_noop": [_P],
 }

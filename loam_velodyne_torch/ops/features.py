@@ -107,8 +107,7 @@ def ring_rejection_mask(xyz: Tensor, count: Tensor, c_region: int) -> Tensor:
                          (occ_b, idx + 1, idx + c + 2),
                          (parallel, idx, idx + 1)):
         add = mark.to(torch.int32)
-        dif.scatter_add_(1, lo, add)
-        dif.scatter_add_(1, hi, -add)
+        dif = dif.scatter_add(1, lo, add).scatter_add(1, hi, -add)
     return torch.cumsum(dif, dim=1)[:, :p_cap] > 0
 
 
@@ -129,14 +128,14 @@ def suppression_extents(xyz: Tensor, count: Tensor, c_region: int
     for k in range(c):
         shifted = torch.cat([step_ok[:, k:], no[:, :k]], dim=1)     # a[i+k]
         run = run & shifted
-        right += run.to(torch.int32)
+        right = right + run.to(torch.int32)
 
     left = torch.zeros((r, p_cap), dtype=torch.int32, device=dev)
     run = torch.ones((r, p_cap), dtype=torch.bool, device=dev)
     for k in range(1, c + 1):
         shifted = torch.cat([no[:, :k], step_ok[:, :-k]], dim=1)    # a[i-k]
         run = run & shifted
-        left += run.to(torch.int32)
+        left = left + run.to(torch.int32)
     return left, right
 
 
@@ -173,7 +172,7 @@ class _Windows(NamedTuple):
         regions."""
         rows = vals_w.shape[0]
         cols = self.off[:, None] + torch.arange(self.w, device=vals_w.device)[None, :]
-        out = vals_w.new_zeros((rows, p)).scatter_(1, cols, vals_w)
+        out = vals_w.new_zeros((rows, p)).scatter(1, cols, vals_w)
         return out.reshape(-1, self.sp.shape[1], p).sum(1)
 
 

@@ -17,6 +17,11 @@ the quota fills or the row's last usable candidate falls
 columns and ``MAX_K`` candidates; the wrapper refuses more. The plain
 version below runs the same loop with one vector op per step over all
 rows.
+
+Lane form (``greedy_pick_rows_lanes``, the one launch path; a
+single-lane call is B = 1): rows are independent, so B lanes fold into
+B * rows rows of the same kernel, one launch (768 rows at VLP-16 with
+B = 8).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib
+from loam_velodyne_torch.ops import cuda_lib, lanes
 
 LABEL_SHARP = 2
 LABEL_LESS_SHARP = 1
@@ -87,6 +92,62 @@ def _pick_plain(curv, cand_idx, cand_ok, picked0, left_ext, right_ext,
     return labels, picked & ~picked0, steps
 
 
+def greedy_pick_rows_lanes_plain(curv, cand_idx, cand_ok, picked0, left_ext,
+                                 right_ext, threshold: float, quota: int,
+                                 sharp_quota: int, is_corner: bool
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the lane form: the plain version lane by lane."""
+    return lanes.per_lane(greedy_pick_rows_plain, curv, cand_idx, cand_ok,
+                          picked0, left_ext, right_ext, threshold, quota,
+                          sharp_quota, is_corner)
+
+
+def greedy_pick_rows_lanes(curv, cand_idx, cand_ok, picked0, left_ext,
+                           right_ext, threshold: float, quota: int,
+                           sharp_quota: int, is_corner: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane form: every argument with a leading lane axis B ((B, rows, W)
+    and (B, rows, K)). Rows are independent, so the lanes fold into rows:
+    one launch over B * rows rows."""
+    args = (curv, cand_idx, cand_ok, picked0, left_ext, right_ext)
+    if curv.dim() != 3:
+        raise ValueError("greedy_pick_rows: curv must be (rows, W), with one "
+                         "leading lane axis in the lane form")
+    if (cand_ok.shape != cand_idx.shape or picked0.shape != curv.shape
+            or left_ext.shape != curv.shape or right_ext.shape != curv.shape
+            or cand_idx.shape[:-1] != curv.shape[:-1]):
+        raise ValueError("greedy_pick_rows: shape mismatch")
+    if (curv.dtype != torch.float32 or cand_idx.dtype != torch.int32
+            or cand_ok.dtype != torch.bool or picked0.dtype != torch.bool
+            or left_ext.dtype != torch.int32 or right_ext.dtype != torch.int32):
+        raise TypeError("greedy_pick_rows: unexpected dtypes")
+    if curv.device.type == "cpu":
+        return greedy_pick_rows_lanes_plain(*args, threshold, quota,
+                                            sharp_quota, is_corner)
+    b, rows, w = curv.shape
+    k_cap = cand_idx.shape[-1]
+    if w > MAX_W or k_cap > MAX_K:
+        raise ValueError(f"greedy_pick_rows: the kernel takes W <= {MAX_W} "
+                         f"and K <= {MAX_K}, got W={w}, K={k_cap}")
+    cuda_lib.check_cuda("greedy_pick_rows", *args)
+    labels = torch.empty((b, rows, w), dtype=torch.int32, device=curv.device)
+    marks = torch.empty((b, rows, w), dtype=torch.bool, device=curv.device)
+    cuda_lib.launch("loam_greedy_pick_rows", curv.device,
+                    *(a.data_ptr() for a in args), labels.data_ptr(),
+                    marks.data_ptr(), b * rows, w, k_cap, float(threshold),
+                    quota, sharp_quota, int(is_corner))
+    greedy_pick_rows.launches += 1
+    return labels, marks
+
+
+lane_op = lanes.LaneOp(
+    "greedy_pick_rows",
+    "(Tensor curv, Tensor cand_idx, Tensor cand_ok, Tensor picked0, "
+    "Tensor left_ext, Tensor right_ext, float threshold, int quota, "
+    "int sharp_quota, bool is_corner) -> (Tensor, Tensor)",
+    greedy_pick_rows_lanes)
+
+
 def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
                      cand_ok: torch.Tensor, picked0: torch.Tensor,
                      left_ext: torch.Tensor, right_ext: torch.Tensor,
@@ -95,34 +156,10 @@ def greedy_pick_rows(curv: torch.Tensor, cand_idx: torch.Tensor,
     """curv (rows, W) float32; cand_idx (rows, K) int32 in [0, W);
     cand_ok (rows, K) bool; picked0 (rows, W) bool; left/right (rows, W)
     int32. Runs the K candidate steps in order. Returns (labels (rows, W)
-    int32, new marks (rows, W) bool)."""
-    rows, w = curv.shape
-    k_cap = cand_idx.shape[1]
-    if (cand_ok.shape != cand_idx.shape or picked0.shape != curv.shape
-            or left_ext.shape != curv.shape or right_ext.shape != curv.shape
-            or cand_idx.shape[0] != rows):
-        raise ValueError("greedy_pick_rows: shape mismatch")
-    if (curv.dtype != torch.float32 or cand_idx.dtype != torch.int32
-            or cand_ok.dtype != torch.bool or picked0.dtype != torch.bool
-            or left_ext.dtype != torch.int32 or right_ext.dtype != torch.int32):
-        raise TypeError("greedy_pick_rows: unexpected dtypes")
-    if curv.device.type == "cpu":
-        return greedy_pick_rows_plain(curv, cand_idx, cand_ok, picked0,
-                                      left_ext, right_ext, threshold, quota,
-                                      sharp_quota, is_corner)
-    if w > MAX_W or k_cap > MAX_K:
-        raise ValueError(f"greedy_pick_rows: the kernel takes W <= {MAX_W} "
-                         f"and K <= {MAX_K}, got W={w}, K={k_cap}")
-    args = (curv, cand_idx, cand_ok, picked0, left_ext, right_ext)
-    cuda_lib.check_cuda("greedy_pick_rows", *args)
-    labels = torch.empty((rows, w), dtype=torch.int32, device=curv.device)
-    marks = torch.empty((rows, w), dtype=torch.bool, device=curv.device)
-    cuda_lib.launch("loam_greedy_pick_rows", curv.device,
-                    *(a.data_ptr() for a in args), labels.data_ptr(),
-                    marks.data_ptr(), rows, w, k_cap, float(threshold),
-                    quota, sharp_quota, int(is_corner))
-    greedy_pick_rows.launches += 1
-    return labels, marks
+    int32, new marks (rows, W) bool): the lane form at B = 1, or under
+    vmap over all lanes."""
+    return lane_op(curv, cand_idx, cand_ok, picked0, left_ext, right_ext,
+                   float(threshold), quota, sharp_quota, is_corner)
 
 
 greedy_pick_rows.launches = 0

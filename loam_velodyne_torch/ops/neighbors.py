@@ -163,14 +163,12 @@ def tiled_windowed_knn(query_xyz: Tensor, query_mask: Tensor,
     widx = colk.reshape(q, k).long()
     idx_sorted = start.repeat_interleave(group)[:, None] + widx
 
-    idx_out = torch.empty((q, k), dtype=torch.int32, device=dev)
-    idx_out[qid] = idx_sorted.to(torch.int32)
-    d2_out = torch.empty((q, k), dtype=torch.float32, device=dev)
-    d2_out[qid] = top
+    # Back to the query order through the inverse permutation of qid.
+    inv = torch.zeros_like(qid).scatter(0, qid, torch.arange(q, device=dev))
+    idx_out = idx_sorted.to(torch.int32)[inv]
+    d2_out = top[inv]
     if not return_neighbors:
         return idx_out, d2_out
     tt = torch.arange(t, device=dev).repeat_interleave(group)[:, None]
     nbr = windows[tt, widx]                                  # (Q, k, 3)
-    nbr_out = torch.empty((q, k, 3), dtype=torch.float32, device=dev)
-    nbr_out[qid] = nbr
-    return idx_out, d2_out, nbr_out
+    return idx_out, d2_out, nbr[inv]

@@ -16,6 +16,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from loam_velodyne_torch.config import LidarConfig, RegistrationConfig
 from loam_velodyne_torch.ops.grid_kernel import grid_windows
@@ -124,13 +125,12 @@ def ingest_sweep(raw: RawSweep, lidar: LidarConfig, reg: RegistrationConfig,
     rel_s = rel[order]
     valid_s = ring_s < r_rings
 
-    counts = torch.zeros(r_rings + 1, dtype=torch.int32, device=dev)
-    counts.scatter_add_(0, ring_key.long(), torch.ones_like(ring_key))
+    counts = torch.zeros(r_rings + 1, dtype=torch.int32, device=dev).scatter_add(
+        0, ring_key.long(), torch.ones_like(ring_key))
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     # Rank within ring: row index minus its segment's first row.
     i = torch.arange(n, dtype=torch.int32, device=dev)
-    seg_start = torch.ones(n, dtype=torch.bool, device=dev)
-    seg_start[1:] = ring_s[1:] != ring_s[:-1]
+    seg_start = F.pad(ring_s[1:] != ring_s[:-1], (1, 0), value=True)
     rank_s = i - torch.cummax(torch.where(seg_start, i, 0), 0).values
     keep_s = valid_s & (rank_s < p_cap)
 
@@ -138,9 +138,7 @@ def ingest_sweep(raw: RawSweep, lidar: LidarConfig, reg: RegistrationConfig,
     grid_mask = (torch.arange(p_cap, device=dev)[None, :]
                  < grid_count[:, None])
     # Column planes padded by one window, so no start ever clamps.
-    cols = torch.zeros((4, n + p_cap), dtype=torch.float32, device=dev)
-    cols[:3, :n] = xyz_s.T
-    cols[3, :n] = rel_s
+    cols = F.pad(torch.cat([xyz_s.T, rel_s[None, :]]), (0, p_cap))
     g = grid_windows(cols, starts[:r_rings].contiguous(), p_cap)  # (R, 4, P)
     grid_xyz = torch.where(grid_mask[..., None], g[:, :3, :].permute(0, 2, 1),
                            0.0)

@@ -12,14 +12,47 @@ Differences in form, not in result:
 - the even-thin index ``ceil(k * S / C)`` is computed in int64;
 - cell sums are ``torch.segment_reduce`` over the sorted rows: a
   sequential sum per cell in row order, deterministic on the card (an
-  ``index_add_`` there would sum in atomic order).
+  ``index_add_`` there would sum in atomic order); under vmap its lane
+  form (``segment_sum_lanes``) runs the B lanes as one call.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from loam_velodyne_torch.ops import lanes
 from loam_velodyne_torch.types import PointSet
+
+
+def segment_sum_lanes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Lane form: (B, N, D) rows, (B, S) segment lengths, each lane's
+    summing to N -> (B, S, D). The lanes' segments laid end to end make
+    one ``segment_reduce`` call; each segment sums its own rows in their
+    order, as in one lane."""
+    b, s = lengths.shape
+    out = torch.segment_reduce(data.reshape(-1, data.shape[-1]), "sum",
+                               lengths=lengths.reshape(-1), unsafe=True)
+    return out.reshape(b, s, -1)
+
+
+def segment_sum_lanes_plain(data: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the lane form: one call per lane."""
+    return lanes.per_lane(
+        lambda d, n: torch.segment_reduce(d, "sum", lengths=n, unsafe=True),
+        data, lengths)
+
+
+lane_op = lanes.LaneOp(
+    "segment_sum", "(Tensor data, Tensor lengths) -> Tensor", segment_sum_lanes)
+
+
+def segment_sum(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sum of each run of ``lengths`` rows of ``data`` (N, D) -> (S, D):
+    the lane form at B = 1 (``segment_reduce`` has no vmap rule, so
+    under vmap the op's rule runs it over all lanes)."""
+    return lane_op(data, lengths)
 
 
 def voxel_downsample(ps: PointSet, leaf: float, capacity: int,
@@ -56,23 +89,20 @@ def voxel_downsample(ps: PointSet, leaf: float, capacity: int,
     ring_s = ps.ring.reshape(-1)[order]
     mask_s = mask.reshape(-1)[order]
 
-    seg_start = torch.ones_like(mask_s)
-    seg_start[1:] = key_s[1:] != key_s[:-1]
-    seg_start &= mask_s
+    seg_start = F.pad(key_s[1:] != key_s[:-1], (1, 0), value=True) & mask_s
     # Segment ids from 1; id 0 takes leading padding rows. Padding rows
     # after a batch row's cells add zeros to its last cell.
     seg_id = torch.cumsum(seg_start, 0)
     n_seg = b * n + 1
-    lengths = torch.zeros(n_seg, dtype=torch.int64, device=dev)
-    lengths.scatter_add_(0, seg_id, torch.ones_like(seg_id))
+    lengths = torch.zeros(n_seg, dtype=torch.int64, device=dev).scatter_add(
+        0, seg_id, torch.ones_like(seg_id))
     payload = torch.cat([xyz_s, rel_s[:, None],
                          torch.ones_like(rel_s)[:, None]], dim=1)
     payload = torch.where(mask_s[:, None], payload, 0.0)
-    sums = torch.segment_reduce(payload, "sum", lengths=lengths, unsafe=True)
-    ring_table = torch.full((n_seg,), 1 << 30, dtype=ring_s.dtype, device=dev)
-    ring_table.scatter_reduce_(0, seg_id,
-                               torch.where(mask_s, ring_s, 1 << 30),
-                               reduce="amin")
+    sums = segment_sum(payload, lengths)
+    ring_table = torch.full((n_seg,), 1 << 30, dtype=ring_s.dtype,
+                            device=dev).scatter_reduce(
+        0, seg_id, torch.where(mask_s, ring_s, 1 << 30), reduce="amin")
 
     n_cells = seg_start.reshape(b, n).sum(1)              # (B,)
     base = 1 + torch.cumsum(n_cells, 0) - n_cells         # first id per row

@@ -127,12 +127,13 @@ def deviation(a, b) -> dict:
 
 class Recorder:
     """Wraps the TRACED functions; records (name, args, kwargs, outputs)
-    on the host while ``on``."""
+    on the host while ``on``, each tree copied by ``host``."""
 
-    def __init__(self):
+    def __init__(self, host=_host):
         self.calls: list = []
         self.on = False
         self.originals = {}
+        self.host = host
 
     def install(self):
         for mod, name in TRACED:
@@ -149,10 +150,10 @@ class Recorder:
         def recorded(*args, **kwargs):
             if not self.on:
                 return fn(*args, **kwargs)
-            entry = [label, fn, _host(args), _host(kwargs)]
+            entry = [label, fn, self.host(args), self.host(kwargs)]
             self.calls.append(entry)          # in call order, nested ones after
             out = fn(*args, **kwargs)
-            entry.append(_host(out))
+            entry.append(self.host(out))
             return out
         return recorded
 

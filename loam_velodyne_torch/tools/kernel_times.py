@@ -6,8 +6,10 @@ H100 from those inputs, and times a callable with CUDA events:
 back-to-back calls (host time included), calls captured in a CUDA graph
 (the device's time with the host out of the way), the host's enqueue
 time, and the device operations a call puts on the card
-(``torch.profiler``). ``chip_smoke.py`` uses it for its
-kernel phase. Importing the module builds no kernel.
+(``torch.profiler``). The lane forms' inputs are B main-path draws
+stacked on a lane axis (``lane_inputs``), and their bound is the sum of
+their lanes'. ``chip_smoke.py`` uses it for its kernel phase. Importing
+the module builds no kernel.
 """
 
 from __future__ import annotations
@@ -99,6 +101,29 @@ def main_path_inputs(dev: torch.device, seed: int = 0,
     return out
 
 
+LANE_SUFFIX = "_lanes"
+
+
+def lane_inputs(dev: torch.device, seed: int = 0, preset: str = "VLP-16",
+                lanes: int = 8) -> dict:
+    """The lane forms' arguments: each main-path case drawn ``lanes``
+    times (seeds ``seed`` .. ``seed + lanes - 1``) and stacked on a
+    leading lane axis, under the case's name + ``_lanes`` (at VLP-16 and
+    B = 8: K1 cols (8, 4, 34,816), starts (8, 16); K2 (8, 96, 384); K3
+    8 x 256 x 1,920 and 8 x 384 x 8,192; K4 (8, 16 / 32, 128, 3) against
+    (8, 16 / 32, 1,024, 3))."""
+    per = [main_path_inputs(dev, seed + i, preset) for i in range(lanes)]
+    return {case + LANE_SUFFIX: tuple(
+                torch.stack(vals) if isinstance(vals[0], torch.Tensor)
+                else vals[0] for vals in zip(*(p[case] for p in per)))
+            for case in per[0]}
+
+
+def lane(args: tuple, i: int) -> tuple:
+    """Lane i of a lane form's arguments."""
+    return tuple(a[i] if isinstance(a, torch.Tensor) else a for a in args)
+
+
 def _nbytes(*tensors: torch.Tensor) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -106,7 +131,11 @@ def _nbytes(*tensors: torch.Tensor) -> int:
 def work(case: str, args: tuple) -> tuple[int, int]:
     """(operations, bytes) a call needs on these inputs: each input byte
     read once, each output byte written once, and only the operations
-    this data asks for."""
+    this data asks for. A lane form's work is the sum of its lanes'."""
+    if case.endswith(LANE_SUFFIX):
+        per = [work(case[:-len(LANE_SUFFIX)], lane(args, i))
+               for i in range(args[0].shape[0])]
+        return sum(o for o, _ in per), sum(b for _, b in per)
     if case.startswith("grid"):
         cols, starts, p = args
         npad = cols.shape[1]

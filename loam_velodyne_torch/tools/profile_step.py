@@ -14,13 +14,23 @@ capacities (as ``chip_smoke.py`` does) and measures, in one process:
   ``build/profile_step/trace.json``;
 - one call of the odometry Jacobian (``vmap(grad)``) at 512 points.
 
+With ``--lanes B`` it profiles the batched replay instead
+(``parallel/replay.py``: B identical lanes of the bench sequence, one
+chunk of warm-up, then the next LANE_SWEEPS sweeps, one odometry-only
+sweep and one mapping sweep, without and with the profiler): launches,
+syncs, device busy share, ms per batched sweep and the aggregate
+sweeps/s over all lanes; then the single stream on the same sweeps
+after the same warm-up, so that the two launch counts come from one
+process.
+
 Prints one JSON object as its last line of output.
 
-    python3 -m loam_velodyne_torch.tools.profile_step
+    python3 -m loam_velodyne_torch.tools.profile_step [--lanes 8]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,9 +46,13 @@ from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
 from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import extract_features
+from loam_velodyne_torch.parallel import replay
 from loam_velodyne_torch.utils import profiling
 
 CHUNK = 8
+# Sweeps of the profiled batched chunk (a whole chunk of 8 lanes did not
+# finish under the profiler in 15 minutes on an H100).
+LANE_SWEEPS = 2
 SWEEP_CAP = 32768
 # The profiled chunk's Chrome trace (viewable in Perfetto).
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -106,22 +120,32 @@ def device_activity(prof) -> dict:
 def profile_chunk(engine, xyz, mask, trace_dir: str) -> dict:
     """The chunk once without and once with the profiler, from one state;
     the profiled run's trace goes to ``trace_dir/trace.json``."""
-    dev = engine.device
     state0, cadence0 = _clone(engine.state), engine.cadence
+
+    def restore():
+        engine.state, engine.cadence = _clone(state0), cadence0
+
+    return profile_calls(lambda: engine.run_chunk(xyz, mask), restore,
+                         engine.device, xyz.shape[0], trace_dir)
+
+
+def profile_calls(call, restore, dev: torch.device, n: int,
+                  trace_dir: str) -> dict:
+    """``call`` (n sweeps) once without and, after ``restore``, once with
+    the profiler."""
     _sync(dev)
     t0 = time.perf_counter()
-    engine.run_chunk(xyz, mask)
+    call()
     _sync(dev)
     plain_s = time.perf_counter() - t0
 
-    engine.state, engine.cadence = state0, cadence0
+    restore()
     with profiling.device_trace(trace_dir) as prof:
         t0 = time.perf_counter()
-        engine.run_chunk(xyz, mask)
+        call()
         _sync(dev)
         prof_s = time.perf_counter() - t0
     rows = prof.key_averages()
-    n = xyz.shape[0]
     out = {
         "sweeps": n,
         "unprofiled_ms_per_sweep": 1e3 * plain_s / n,
@@ -177,15 +201,59 @@ def run(dev: torch.device, cfg: LoamConfig, cap: int, trace_dir: str) -> dict:
     return out
 
 
-def main() -> None:
+def run_lanes(dev: torch.device, cfg: LoamConfig, cap: int, trace_dir: str,
+              lanes: int) -> dict:
+    """The batched replay: B identical lanes of the bench sequence, one
+    warm-up chunk, then the next LANE_SWEEPS sweeps without and with the
+    profiler; then the single stream the same way."""
+    xyz, mask, _ = synthetic.bench_sequence(2 * CHUNK, cfg.lidar, cap)
+    xyz = torch.from_numpy(xyz).to(dev)[None].expand(lanes, -1, -1, -1)
+    mask = torch.from_numpy(mask).to(dev)[None].expand(lanes, -1, -1)
+    chunk = replay.make_batched_chunk(cfg)
+
+    def raws(s):
+        return scan_mod.RawSweep(xyz[:, s:s + CHUNK].contiguous(),
+                                 mask[:, s:s + CHUNK].contiguous())
+
+    states, _ = chunk(replay.create_states(cfg, lanes, dev), raws(0),
+                      engine_mod.Cadence())
+    cadence = engine_mod.Cadence()
+    for _ in range(CHUNK):
+        cadence = cadence.advance(cfg)
+    second = scan_mod.RawSweep(xyz[:, CHUNK:CHUNK + LANE_SWEEPS].contiguous(),
+                               mask[:, CHUNK:CHUNK + LANE_SWEEPS].contiguous())
+    # The chunk leaves its input states as they were: nothing to restore.
+    out = profile_calls(lambda: chunk(states, second, cadence),
+                        lambda: None, dev, LANE_SWEEPS, trace_dir)
+    out["lanes"] = lanes
+    out["aggregate_sweeps_per_s"] = (lanes * 1e3
+                                     / out["unprofiled_ms_per_sweep"])
+    # The single stream on the same sweeps, in the same process.
+    engine = engine_mod.Engine(cfg, dev)
+    engine.run_chunk(xyz[0, :CHUNK], mask[0, :CHUNK])
+    one = profile_chunk(engine, xyz[0, CHUNK:CHUNK + LANE_SWEEPS],
+                        mask[0, CHUNK:CHUNK + LANE_SWEEPS],
+                        os.path.join(trace_dir, "single"))
+    out["launch_ratio_to_single_stream"] = out["launches"] / one["launches"]
+    return {"batched_chunk": out, "single_stream_same_sweeps": one}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lanes", type=int, default=0,
+                    help="profile the batched replay with B lanes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     result = {"card": card, "torch": torch.__version__}
-    result.update(run(torch.device("cuda:0"), LoamConfig.preset("VLP-16"),
-                      SWEEP_CAP, TRACE_DIR))
+    dev, cfg = torch.device("cuda:0"), LoamConfig.preset("VLP-16")
+    if args.lanes:
+        result.update(run_lanes(dev, cfg, SWEEP_CAP, TRACE_DIR, args.lanes))
+    else:
+        result.update(run(dev, cfg, SWEEP_CAP, TRACE_DIR))
     print(json.dumps(result))
 
 

@@ -40,3 +40,21 @@ def test_greedy_chain_steps_end_where_the_quota_fills():
     assert labels[0].tolist() == [0, 2, 0, 0, 0, 1, 0, 0]    # sharp quota 1
     assert marks[0].tolist() == [True, True, True, False, True, True, True,
                                  False]
+
+
+def test_lane_inputs_stack_main_path_draws_and_their_bound_sums():
+    """A lane form's inputs are B main-path draws (seeds seed..seed+B-1)
+    on a leading lane axis; its work is the sum of its lanes'."""
+    dev = torch.device("cpu")
+    lanes = kernel_times.lane_inputs(dev, seed=4, lanes=2)
+    one = [kernel_times.main_path_inputs(dev, seed=4 + i) for i in range(2)]
+    assert set(lanes) == {case + "_lanes" for case in one[0]}
+    for case in ("grid", "corresp_surf", "knn_corner"):
+        args = lanes[case + "_lanes"]
+        for i in range(2):
+            for a, b in zip(kernel_times.lane(args, i), one[i][case]):
+                assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                        else a == b)
+        ops, nbytes = kernel_times.work(case + "_lanes", args)
+        per = [kernel_times.work(case, one[i][case]) for i in range(2)]
+        assert (ops, nbytes) == (per[0][0] + per[1][0], per[0][1] + per[1][1])

@@ -307,3 +307,122 @@ def test_wrappers_count_their_launches():
     grid_kernel.grid_windows(cols, s, 16)
     grid_kernel.grid_windows_plain(cols, s, 16)
     assert grid_kernel.grid_windows.launches == before + 1
+
+
+# Lane forms (the batched replay): each against its plain twin, which
+# runs the plain version lane by lane, at the B = 8 main-path shapes of
+# tools/kernel_times.py::lane_inputs, and reached from a vmapped wrapper.
+LANE_FORMS = {
+    "grid_lanes": (grid_kernel.grid_windows_lanes,
+                   grid_kernel.grid_windows_lanes_plain,
+                   grid_kernel.grid_windows),
+    "greedy_corner_lanes": (greedy_kernel.greedy_pick_rows_lanes,
+                            greedy_kernel.greedy_pick_rows_lanes_plain,
+                            greedy_kernel.greedy_pick_rows),
+    "greedy_flat_lanes": (greedy_kernel.greedy_pick_rows_lanes,
+                          greedy_kernel.greedy_pick_rows_lanes_plain,
+                          greedy_kernel.greedy_pick_rows),
+    "corresp_corner_lanes": (corresp_kernel.corresp_search_lanes,
+                             corresp_kernel.corresp_search_lanes_plain,
+                             corresp_kernel.corresp_search),
+    "corresp_surf_lanes": (corresp_kernel.corresp_search_lanes,
+                           corresp_kernel.corresp_search_lanes_plain,
+                           corresp_kernel.corresp_search),
+    "knn_corner_lanes": (knn_kernel.grouped_window_knn_lanes,
+                         knn_kernel.grouped_window_knn_lanes_plain,
+                         knn_kernel.grouped_window_knn),
+    "knn_surf_lanes": (knn_kernel.grouped_window_knn_lanes,
+                       knn_kernel.grouped_window_knn_lanes_plain,
+                       knn_kernel.grouped_window_knn),
+}
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.fixture(scope="module")
+def lane_cases():
+    from loam_velodyne_torch.tools import kernel_times
+    return kernel_times.lane_inputs(_device(), seed=3, lanes=8)
+
+
+@pytest.mark.parametrize("case", list(LANE_FORMS))
+def test_lane_form_main_path(case, lane_cases):
+    """B = 8 at the VLP-16 main-path shapes (K2 768 rows, K4 128 / 256
+    groups), bit-equal to the plain twin; one launch, counted on the
+    kernel's wrapper."""
+    lane_form, plain, single = LANE_FORMS[case]
+    args = lane_cases[case]
+    before = single.launches
+    _equal(_as_tuple(lane_form(*args)), _as_tuple(plain(*args)))
+    assert single.launches == before + 1
+
+
+@pytest.mark.parametrize("case", list(LANE_FORMS))
+def test_lane_form_reached_under_vmap(case, lane_cases):
+    """The single-lane wrapper under torch.func.vmap reaches the lane form
+    through its custom op (no per-lane fallback) and gives the plain
+    twin's outputs."""
+    from loam_velodyne_torch.parallel.replay import no_vmap_fallback
+    _, plain, single = LANE_FORMS[case]
+    args = lane_cases[case]
+    dims = tuple(0 if isinstance(a, torch.Tensor) else None for a in args)
+    before = single.launches
+    with no_vmap_fallback():
+        got = torch.func.vmap(single, in_dims=dims)(*args)
+    _equal(_as_tuple(got), _as_tuple(plain(*args)))
+    assert single.launches == before + 1
+
+
+def test_grid_lanes_clamp_each_start_within_its_lane():
+    """Starts below 0 and beyond Npad - P in every lane, different per
+    lane: each is clamped within its own lane, never into the next."""
+    dev = _device()
+    rng = np.random.default_rng(21)
+    b, npad, p = 3, 4099, 1001
+    cols = torch.from_numpy(rng.normal(size=(b, 4, npad)).astype(np.float32)).to(dev)
+    s = np.array([[-7, 0, npad - p, npad, 1 << 30],
+                  [npad - p + 1, 3, -1, 1 << 30, npad - p - 1],
+                  [1 << 30, npad, npad - p, 0, -(1 << 30)]], np.int32)
+    s = torch.from_numpy(s).to(dev)
+    _equal([grid_kernel.grid_windows_lanes(cols, s, p)],
+           [grid_kernel.grid_windows_lanes_plain(cols, s, p)])
+
+
+@pytest.mark.parametrize("surf", [False, True], ids=["corner", "surf"])
+def test_corresp_lanes_see_only_their_own_reference(surf):
+    """Lane 1's reference holds a copy of lane 0's queries, lane 0's
+    reference is far away: lane 0 must not find them. Ragged Q and M,
+    and one lane fully masked."""
+    dev = _device()
+    rng = np.random.default_rng(22)
+    b, nq, m = 3, 130, 1000
+    q = (rng.normal(size=(b, nq, 3)) * 5).astype(np.float32)
+    ref = (rng.normal(size=(b, m, 3)) * 5 + 50).astype(np.float32)
+    ref[1, :nq] = q[0]
+    ring = rng.integers(0, 16, size=(b, m)).astype(np.int32)
+    mask = rng.random((b, m)) < 0.8
+    mask[2] = False
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (t(q), t(ref), t(ring), t(mask), 2.5, surf)
+    got = corresp_kernel.corresp_search_lanes(*args)
+    _equal(got, corresp_kernel.corresp_search_lanes_plain(*args))
+    assert bool((got[1][0] > 100).all()) and bool(torch.isinf(got[1][2]).all())
+
+
+def test_segment_sum_lanes_match_the_lanes_one_by_one():
+    """The lane segment sums (one segment_reduce over the lanes laid end
+    to end) equal one call per lane, bit for bit, on the card."""
+    from loam_velodyne_torch.ops import voxel
+    dev = _device()
+    rng = np.random.default_rng(23)
+    b, n, s = 8, 32768, 4001
+    data = torch.from_numpy(rng.normal(size=(b, n, 5)).astype(np.float32)).to(dev)
+    lengths = np.zeros((b, s), np.int64)
+    for i in range(b):
+        cuts = np.sort(rng.integers(0, n, size=s - 1))
+        lengths[i] = np.diff(np.concatenate([[0], cuts, [n]]))
+    lengths = torch.from_numpy(lengths).to(dev)
+    _equal([voxel.segment_sum_lanes(data, lengths)],
+           [voxel.segment_sum_lanes_plain(data, lengths)])

@@ -73,6 +73,20 @@ assert bool(packed[1, 18]) and engine.sweep == 2         # mapping ran
 ate = chip_smoke.ate_rmse(packed[:, 15:18].numpy(), gt, align=True)
 assert ate == ate
 
+# The batched replay: two identical lanes of the same input as one op
+# stream (the vmap fallback off), and replay_sequences.
+from loam_velodyne_torch.parallel import replay as batched
+x, m = chip_smoke.torch.from_numpy(xyz), chip_smoke.torch.from_numpy(mask)
+_, bout = batched.make_batched_chunk(cfg)(
+    batched.create_states(cfg, 2, "cpu"),
+    chip_smoke.RawSweep(chip_smoke.torch.stack([x, x]),
+                        chip_smoke.torch.stack([m, m])))
+assert bout.packed.shape == (2, 2, 29)
+assert (bout.packed[:, :, 18:] == packed[None, :, 18:]).all()
+pos = batched.replay_sequences(cfg, [[xyz[i][mask[i]] for i in range(2)]] * 2,
+                               device="cpu", sweep_capacity=256)
+assert pos.shape == (2, 2, 3)
+
 import os, tempfile
 import numpy as np
 from loam_velodyne_torch.io.driver import LoamDriver
