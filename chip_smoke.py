@@ -61,15 +61,31 @@ JAX package's CPU replay of the same sequence
 (``tests/bench_trajectory_jax.npz``) by aligned cross-ATE and largest
 pose deviation. Last, the batched replay (``run_batched``,
 ``parallel/replay.py``): 8 identical lanes of the bench sequence held to
-the replay's first 16 sweeps (and to each other, bit for bit), then 8
+the replay's first 24 sweeps (and to each other, bit for bit), then 8
 distinct sequences (ATE and loss counters per lane, lanes 0 and 5 held
 to single-stream runs of their own), the lane forms' launches counted
 from 0 for each and exact, every lane-form call of the distinct run
 recorded inside the ops' vmap rules and held bit-equal to its plain
 twin after the counts are read; the aggregate sweeps/s over all lanes
 is printed beside the single stream's. The lane forms have their own
-rows in the kernel phase (``*_lanes``, at B = 8 main-path draws). It
-imports only ``loam_velodyne_torch`` (never JAX or the JAX package).
+rows in the kernel phase (``*_lanes``, at B = 8 main-path draws).
+
+Then three phases. The multi-process replay (``run_multiprocess``,
+``parallel/multihost.py`` through ``tools/dryrun_dcn.py``): two fresh
+processes share the card over gloo, two lanes each, and gather all four
+lanes' trajectories; each worker's lane-form launches are exact, the
+gathered arrays equal, lane 0 of both ranks bit-equal, and every lane
+bit-equal to this process's own B = 2 run of the same lanes, with ATE
+and loss-counter gates. The sized replay (``run_sized``): the bench
+sequence at ``LoamConfig.sized_for_stream`` of its stream's padding
+(``config.stream_cap``; P = 1,152), ATE, loss counters and launches
+gated, every kernel call held bit-equal to its plain version, K3's and
+K4's shapes those of the datasheet capacities; K1 and K2 also run at
+its shapes in the kernel phase (the cases ending in ``_sized``). The
+oracle gates (``run_oracle``): the card's driver against the NumPy
+oracle's committed run (``tests/oracle_trajectory.npz``) with
+tests/test_oracle.py's gates at 10 and 30 sweeps. It imports only
+``loam_velodyne_torch`` (never JAX or the JAX package).
 
 Run from the repository root:  python3 chip_smoke.py
 Every failure raises (non-zero exit). The last line of standard output
@@ -80,9 +96,12 @@ at the top level and every case under ``cases``, its launches on the
 per-sweep path under ``per_sweep_path``, on the entry points under
 ``entry_points`` and on the HDL-64E run under ``hdl64e``, the launch
 floor, and the phases' numbers under ``per_sweep``, ``entry_points``,
-``trajectory_gates`` and ``batched``; a lane form's row has its
-launches over the batched phase and its engine calls under
-``batched_calls``.
+``trajectory_gates``, ``batched``, ``multiprocess``, ``sized`` and
+``oracle``; a lane form's row has its launches over the batched phase,
+its engine calls under ``batched_calls`` and each worker's launches
+under ``multiprocess``; a single-lane row its launches and engine calls
+in the sized run under ``sized`` and its launches in the oracle run
+under ``oracle``.
 """
 
 from __future__ import annotations
@@ -100,8 +119,8 @@ import numpy as np
 import torch
 
 from loam_velodyne_torch import cli
-from loam_velodyne_torch.config import HDL64E, LoamConfig
-from loam_velodyne_torch.eval.metrics import ate_rmse
+from loam_velodyne_torch.config import HDL64E, LoamConfig, stream_cap
+from loam_velodyne_torch.eval.metrics import ate_rmse, rpe_rmse
 from loam_velodyne_torch.io import driver as driver_mod
 from loam_velodyne_torch.io import kitti, native, pcap, rosbag, synthetic
 from loam_velodyne_torch.io.driver import LoamDriver
@@ -112,7 +131,7 @@ from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
                                      neighbors, scan, voxel)
 from loam_velodyne_torch.ops.scan import RawSweep
 from loam_velodyne_torch.parallel import replay as replay_mod
-from loam_velodyne_torch.tools import (device_split, kernel_times,
+from loam_velodyne_torch.tools import (device_split, dryrun_dcn, kernel_times,
                                        make_validation_pcap)
 
 SEED = 0
@@ -196,6 +215,27 @@ BENCH_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "bench_trajectory_jax.npz")
 BENCH_CROSS_ATE_M = 5e-3
 BENCH_MAX_DEV = 0.02
+# The multi-process phase: the dry run's VLP-16 preset
+# (loam_velodyne_torch/tools/dryrun_dcn.py: two fresh processes sharing
+# the card, two lanes each, 16 sweeps in chunks of CHUNK, one gloo
+# all_gather at the end), its report in the git-ignored build directory,
+# the workers killed after MULTI_TIMEOUT_S.
+MULTI_PRESET = "VLP-16"
+MULTI_REPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke", "dryrun_dcn.json")
+MULTI_TIMEOUT_S = 600
+# The sized phase: the bench sequence's first SIZED_SWEEPS sweeps at
+# ``LoamConfig.sized_for_stream`` of their padding (``config.stream_cap``),
+# and the kernel cases run at its shapes.
+SIZED_SWEEPS = 16
+SIZED_CASES = ("grid", "greedy_corner", "greedy_flat")
+# The oracle phase: tests/test_oracle.py's VLP-16 gates (10 and 30 noisy
+# turning sweeps) against the NumPy oracle's committed run
+# (``python tests/test_torch_trajectory_gates.py oracle`` writes it).
+ORACLE_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "oracle_trajectory.npz")
+ORACLE_SWEEPS = (10, 30)
+ORACLE_CROSS_M, ORACLE_GT_M, ORACLE_RATIO = 0.05, 0.15, 1.2
 
 
 def _nvcc_version() -> str:
@@ -254,14 +294,15 @@ KERNELS = {
     "grid_windows": (
         grid_kernel.grid_windows, grid_kernel.grid_windows_plain,
         "loam_velodyne_torch/csrc/grid.cu",
-        "loam_velodyne_tpu/ops/pallas_grid.py:56", ("grid", "grid_hdl64e"),
-        "grid"),
+        "loam_velodyne_tpu/ops/pallas_grid.py:56",
+        ("grid", "grid_hdl64e", "grid_sized"), "grid"),
     "greedy_pick_rows": (
         greedy_kernel.greedy_pick_rows, greedy_kernel.greedy_pick_rows_plain,
         "loam_velodyne_torch/csrc/greedy.cu",
         "loam_velodyne_tpu/ops/pallas_greedy.py:90",
         ("greedy_corner", "greedy_flat", "greedy_corner_hdl64e",
-         "greedy_flat_hdl64e"), "greedy_corner"),
+         "greedy_flat_hdl64e", "greedy_corner_sized", "greedy_flat_sized"),
+        "greedy_corner"),
     "corresp_search": (
         corresp_kernel.corresp_search, corresp_kernel.corresp_search_plain,
         "loam_velodyne_torch/csrc/corresp.cu",
@@ -301,6 +342,10 @@ KERNELS = {
 # Launches of each kernel in the 48-sweep replay: K1 once and K2 twice
 # per sweep, K3 10 times per odometry sweep (47), K4 10 times per
 # mapping frame (24).
+# Calls timed for a lane form's plain twin's ``plain_ms`` (the K2 twin
+# takes ~0.4 s a call; the single-lane plain versions take
+# ``kernel_times.time_ms``'s default 50).
+LANE_PLAIN_REPS = 10
 EXPECTED_LAUNCHES = {"grid_windows": 48, "greedy_pick_rows": 96,
                      "corresp_search": 470, "grouped_window_knn": 240}
 
@@ -327,7 +372,7 @@ def _outputs(name: str, out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def check_kernels(dev) -> list[dict]:
+def check_kernels(dev, sized: tuple) -> list[dict]:
     """Each kernel against its plain version on the card at every
     main-path shape (inputs from a numpy seed), then timed: the wrapper
     and the plain version by CUDA events around back-to-back calls
@@ -337,10 +382,14 @@ def check_kernels(dev) -> list[dict]:
     time with the host out of the way); the host's time to enqueue a
     wrapper call (``host_ms``); the wrapper's device operations per call
     and their summed durations (``device_ms``, from the profiler); beside
-    the bound computed from the same inputs."""
+    the bound computed from the same inputs. ``sized``: the sized config
+    and its sweep padding (``sized_config``), at whose shapes K1 and K2
+    also run (the cases ending in ``_sized``)."""
     inputs = kernel_times.main_path_inputs(dev, SEED)
     inputs.update({f"{k}_hdl64e": v for k, v in kernel_times.main_path_inputs(
-        dev, SEED, "HDL-64E").items()})
+        dev, SEED, LoamConfig.preset("HDL-64E")).items()})
+    inputs.update({f"{k}_sized": v for k, v in kernel_times.main_path_inputs(
+        dev, SEED, *sized).items() if k in SIZED_CASES})
     inputs.update(kernel_times.lane_inputs(dev, SEED, lanes=LANES))
     rows = []
     for name, (wrapper, plain, source, replaces, cases, head) in KERNELS.items():
@@ -357,7 +406,9 @@ def check_kernels(dev) -> list[dict]:
                                (l_fn().contiguous(),), got)
             ms = kernel_times.time_ms(k_fn)
             kernel_ms = kernel_times.graph_ms(k_fn)
-            plain_ms = kernel_times.time_ms(lambda: plain(*args))
+            plain_ms = kernel_times.time_ms(
+                lambda: plain(*args),
+                *((LANE_PLAIN_REPS,) if name.endswith("_lanes") else ()))
             library_ms = None if l_fn is None else kernel_times.graph_ms(l_fn)
             kernel_ms = min(kernel_ms, kernel_times.graph_ms(k_fn))
             ms = min(ms, kernel_times.time_ms(k_fn))
@@ -570,16 +621,8 @@ def _distinct_sequence(cfg: LoamConfig, seed: int, speed: float):
     """A bench-like sequence of LANE_SWEEPS sweeps: the turning
     trajectory at ``speed``, 5 mm of point noise drawn from ``seed``,
     padded to SWEEP_CAP rows: (xyz, mask, gt)."""
-    sweeps, gt, _ = synthetic.generate_sequence(
-        LANE_SWEEPS, lidar=cfg.lidar, n_azimuth=900, speed=speed,
-        traj=synthetic.turning_trajectory(speed=speed))
-    rng = np.random.default_rng(seed)
-    xyz = np.zeros((LANE_SWEEPS, SWEEP_CAP, 3), np.float32)
-    mask = np.zeros((LANE_SWEEPS, SWEEP_CAP), bool)
-    for i, pts in enumerate(sweeps):
-        pts = pts[:SWEEP_CAP] + rng.normal(0.0, 0.005, pts[:SWEEP_CAP].shape)
-        xyz[i, :len(pts)], mask[i, :len(pts)] = pts, True
-    return xyz, mask, gt
+    sweeps, gt = synthetic.noisy_turning(LANE_SWEEPS, cfg.lidar, seed, speed)
+    return (*synthetic.pad_sweeps(sweeps, SWEEP_CAP), gt)
 
 
 def _batched_replay(cfg: LoamConfig, xyz: torch.Tensor, mask: torch.Tensor):
@@ -613,6 +656,11 @@ def _lane_launches(expected: dict) -> dict:
     return got
 
 
+def _shapes(args: tuple) -> str:
+    return "; ".join("x".join(map(str, x.shape)) for x in args
+                     if isinstance(x, torch.Tensor))
+
+
 def batched_calls(calls: dict) -> dict:
     """Each recorded lane-form call against its plain twin (bit-equal)
     and, for the four kernels, its time in a CUDA graph, grouped by the
@@ -624,9 +672,7 @@ def batched_calls(calls: dict) -> dict:
         for i, a in enumerate(args_list):
             got, want = _outputs(name, fn(*a)), _outputs(name, twin(*a))
             _require_equal(f"{name} batched call {i}", got, want)
-            shapes = "; ".join("x".join(map(str, x.shape)) for x in a
-                               if isinstance(x, torch.Tensor))
-            groups.setdefault(shapes, []).append(
+            groups.setdefault(_shapes(a), []).append(
                 None if name == "segment_sum_lanes" else
                 kernel_times.graph_ms(lambda a=a: fn(*a), 10, 5))
         out[name] = [{"shapes": k, "calls": len(v),
@@ -1001,11 +1047,12 @@ def _tracked_driver():
         driver_mod.LoamDriver = LoamDriver
 
 
-def engine_calls(calls: dict) -> dict:
-    """Each recorded call against the plain version (bit-equal) and its
-    time in a CUDA graph, by kernel and by the shapes of its tensor
-    arguments (K2's corner and flat calls, K3's corner and surf calls):
-    the number of calls and their mean and largest time."""
+def engine_calls(calls: dict, label: str, timed=tuple(WRAPPERS)) -> dict:
+    """Each recorded call against the plain version (bit-equal) and, for
+    the kernels in ``timed``, its time in a CUDA graph, by kernel and by
+    the shapes of its tensor arguments (K2's corner and flat calls, K3's
+    corner and surf calls): the number of calls and their mean and
+    largest time."""
     out = {}
     for name, args_list in calls.items():
         wrapper, plain = KERNELS[name][:2]
@@ -1013,18 +1060,20 @@ def engine_calls(calls: dict) -> dict:
         for i, (a, kw) in enumerate(args_list):
             got, want = wrapper(*a, **kw), plain(*a, **kw)
             got, want = _outputs(name, got), _outputs(name, want)
-            _require_equal(f"{name} HDL-64E call {i}", got, want)
-            shapes = "; ".join("x".join(map(str, x.shape)) for x in a
-                               if isinstance(x, torch.Tensor))
-            groups.setdefault(shapes, []).append(kernel_times.graph_ms(
-                lambda a=a, kw=kw: wrapper(*a, **kw), 10, 5))
-        out[name] = [{"shapes": k, "calls": len(v), "kernel_ms_mean": sum(v) / len(v),
-                      "kernel_ms_max": max(v)} for k, v in groups.items()]
+            _require_equal(f"{name} {label} call {i}", got, want)
+            groups.setdefault(_shapes(a), []).append(
+                kernel_times.graph_ms(lambda a=a, kw=kw: wrapper(*a, **kw), 10, 5)
+                if name in timed else None)
+        out[name] = [{"shapes": k, "calls": len(v),
+                      "kernel_ms_mean": None if v[0] is None else sum(v) / len(v),
+                      "kernel_ms_max": None if v[0] is None else max(v)}
+                     for k, v in groups.items()]
         for o in out[name]:
-            print(f"HDL-64E engine {name} [{o['shapes']}]: {o['calls']} calls, "
-                  f"each bit-equal to the plain version; in a graph "
-                  f"{o['kernel_ms_mean']:.4f} ms a call (max "
-                  f"{o['kernel_ms_max']:.4f})", flush=True)
+            timing = ("" if o["kernel_ms_mean"] is None else
+                      f"; in a graph {o['kernel_ms_mean']:.4f} ms a call (max "
+                      f"{o['kernel_ms_max']:.4f})")
+            print(f"{label} engine {name} [{o['shapes']}]: {o['calls']} calls, "
+                  f"each bit-equal to the plain version{timing}", flush=True)
     return out
 
 
@@ -1262,10 +1311,247 @@ def run_entry_points(dev, card: str) -> tuple[dict, dict]:
         raise AssertionError(f"kernels not launched on the entry points: {missing}")
     # After the counts are read: every HDL-64E kernel call against its
     # plain version, and its time in a graph.
-    out["hdl64e"]["engine_calls"] = engine_calls(calls)
+    out["hdl64e"]["engine_calls"] = engine_calls(calls, "HDL-64E")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"entry points: the phase took {out['seconds']:.1f} s", flush=True)
     return launches, out
+
+
+def sized_config() -> tuple[LoamConfig, int]:
+    """The VLP-16 preset sized to the bench stream: its first
+    SIZED_SWEEPS sweeps' padding (``config.stream_cap``) and
+    ``LoamConfig.sized_for_stream`` of it, as the JAX bench sizes its
+    cells: (config, sweep padding)."""
+    cfg = LoamConfig.preset("VLP-16")
+    cap = stream_cap(synthetic.bench_sweeps(SIZED_SWEEPS, cfg.lidar)[0])
+    return cfg.sized_for_stream(cap), cap
+
+
+def _expected_launches(sweeps: int) -> dict:
+    """Each kernel's launches over ``sweeps`` sweeps of the static
+    cadence from the start: K1 once and K2 twice a sweep, K3 10 times an
+    odometry sweep, K4 10 times a mapping frame (every second sweep)."""
+    return {"grid_windows": sweeps, "greedy_pick_rows": 2 * sweeps,
+            "corresp_search": 10 * (sweeps - 1),
+            "grouped_window_knn": 10 * (sweeps // 2)}
+
+
+def run_multiprocess(dev, card: str) -> dict:
+    """The multi-process replay (``parallel/multihost.py``) on the card,
+    through its dry run (``tools/dryrun_dcn.py --device cuda --preset
+    VLP-16``): two fresh processes on ``cuda:0``, two lanes each (lane 0
+    the bench sequence in both, lane 1 each rank's own), one all_gather
+    at the end. Each worker counts its kernels' launches from 0 over its
+    run (every lane form, exact). The two workers' gathered arrays must
+    be equal, lane 0 of both ranks bit-equal, and every gathered lane
+    bit-equal to each rank's two lanes replayed here through
+    ``make_batched_chunk`` at B = 2 after the workers have exited (alone
+    on the card, so its chunk seconds are the workers' yardstick), whose
+    ATE and loss counters are gated. All readings are printed before any
+    gate is applied."""
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(MULTI_REPORT), exist_ok=True)
+    rc = dryrun_dcn.main(["--device", dev.type, "--preset", MULTI_PRESET,
+                          "--out", MULTI_REPORT,
+                          "--timeout", str(MULTI_TIMEOUT_S)])
+    if rc != 0:
+        raise AssertionError(f"multi-process: the dry run exited {rc}")
+    # This process's own B = 2 run of each rank's lanes.
+    own, own_secs, ates, losses = [], [], [], []
+    for rank in range(dryrun_dcn.N_PROC):
+        case = dryrun_dcn.CASES[MULTI_PRESET](rank)
+        if case.chunk != CHUNK:
+            raise AssertionError(f"the dry run's chunk {case.chunk} is "
+                                 f"not {CHUNK}")
+        xyz, mask = zip(*(synthetic.pad_sweeps(lane, case.cap)
+                          for lane in case.lanes))
+        packed, secs = _batched_replay(
+            case.cfg, torch.from_numpy(np.stack(xyz)).to(dev),
+            torch.from_numpy(np.stack(mask)).to(dev))
+        own.append(packed[:, :, 15:18])
+        own_secs.append(secs)
+        ates += [ate_rmse(packed[i, :, 15:18], gt, align=True)
+                 for i, gt in enumerate(case.gts)]
+        losses.append(packed[:, :, 20:27].sum(axis=(0, 1)))
+    with open(MULTI_REPORT) as f:
+        report = json.load(f)
+    workers = report["workers"]
+    gathered = np.asarray(workers[0]["positions"], np.float32)
+    expected = _expected_launches(gathered.shape[1])
+    for w in workers:
+        print(f"multi-process: rank {w['rank']} on {w['device']} "
+              f"({w['card']}): {w['sweeps']} sweeps x {w['lanes']} lanes in "
+              f"{w['seconds']:.1f} s, chunk seconds "
+              f"{[round(x, 2) for x in w['chunk_seconds']]}; lane-form "
+              f"launches {json.dumps(w['launches'])}; card: {card}", flush=True)
+    own = np.concatenate(own)
+    lanes_equal = [bool(np.array_equal(gathered[i], own[i]))
+                   for i in range(len(own))]
+    losses = np.sum(losses, axis=0)
+    out = {"processes": report["processes"], "lanes": report["lanes"],
+           "sweeps": report["sweeps"],
+           "gathered_equal": report["gathered_equal"],
+           "lane0_max_abs_diff": report["lane0_max_abs_diff"],
+           "lanes_equal_to_this_process": lanes_equal,
+           "lanes_max_abs_diff_to_this_process": float(np.abs(gathered - own).max()),
+           "ate_m": ates, "loss_counters": losses.tolist(),
+           "this_process_chunk_seconds": own_secs,
+           "workers": [{k: w[k] for k in ("rank", "device", "card", "seconds",
+                                          "chunk_seconds", "launches")}
+                       for w in workers],
+           "dry_run_seconds": report["seconds"]}
+    print(f"multi-process: {out['processes']} processes, {out['lanes']} lanes "
+          f"gathered in each, equal across them: {out['gathered_equal']}; lane 0 "
+          f"of rank 0 against rank 1: {out['lane0_max_abs_diff']:.3g}; each "
+          f"lane bit-equal to this process's B = 2 run: {lanes_equal} (largest "
+          f"difference {out['lanes_max_abs_diff_to_this_process']:.3g}; its "
+          f"chunk seconds alone on the card, by rank "
+          f"{[[round(x, 2) for x in v] for v in own_secs]}); ATE by lane "
+          f"{[round(100 * a, 3) for a in ates]} cm, loss counters "
+          f"{losses.tolist()}", flush=True)
+    failures = []
+    want_card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else "cpu")
+    for w in workers:
+        if not (w["device"].startswith(dev.type) and w["card"] == want_card
+                and w["launches"] == expected):
+            failures.append(f"rank {w['rank']}: {w['device']} {w['card']}, "
+                            f"launches {w['launches']}, expected {expected}")
+    if not (out["gathered_equal"] and out["lane0_max_abs_diff"] == 0.0
+            and all(lanes_equal)):
+        failures.append("the gathered lanes differ")
+    if max(ates) > ATE_GATE_M or losses.any():
+        failures.append(f"ATE {ates}, loss counters {losses}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"multi-process: the phase took {out['seconds']:.1f} s (the dry run "
+          f"{report['seconds']:.1f} s); card: {card}", flush=True)
+    if failures:
+        raise AssertionError("multi-process phase: " + "; ".join(failures))
+    return out
+
+
+def run_sized(dev, card: str, sized: tuple, replay_chunk_ms: list
+              ) -> tuple[dict, dict]:
+    """The bench sequence's first SIZED_SWEEPS sweeps through
+    ``Engine.run_chunk`` at the sized config (``sized_config``), the
+    sweeps padded to its stream's padding: ATE and zero loss counters,
+    the launches counted from 0 (exact), every kernel call recorded and
+    held bit-equal to its plain version after the counts are read, K1's
+    and K2's timed in a CUDA graph; K3's and K4's shapes must be those of
+    the datasheet capacities (their capacities do not follow P). The ms
+    a sweep by chunk is printed beside the datasheet replay's on the same
+    sweeps (``replay_chunk_ms``, earlier in this call). Returns the
+    launches and the phase's numbers."""
+    t_phase = time.perf_counter()
+    cfg, cap = sized
+    xyz, mask, gt = synthetic.bench_sequence(SIZED_SWEEPS, cfg.lidar, cap)
+    xyz_d = torch.from_numpy(xyz).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    engine = Engine(cfg, dev)
+    _sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _recording_calls() as calls:
+        packed, ends = replay(engine, xyz_d, mask_d)
+    launches = _read_launches()
+    packed = packed.cpu().numpy()
+    chunk_ms = [1e3 * (b - a) / CHUNK for a, b in zip([t0] + ends, ends)]
+    ate = ate_rmse(packed[:, 15:18], gt, align=True)
+    losses = packed[:, 20:27].sum(axis=0)
+    datasheet = {name: {_shapes(args) for case, args in
+                        kernel_times.main_path_inputs(dev, SEED).items()
+                        if case.startswith(prefix)}
+                 for name, prefix in (("corresp_search", "corresp"),
+                                      ("grouped_window_knn", "knn"))}
+    shapes = {name: sorted({_shapes(a) for a, _ in calls[name]})
+              for name in calls}
+    print(f"sized: VLP-16 at P = {cfg.lidar.max_points_per_ring} (datasheet "
+          f"{LoamConfig.preset('VLP-16').lidar.max_points_per_ring}), sweeps "
+          f"padded to {cap} rows; {SIZED_SWEEPS} sweeps, ATE {ate * 100:.3f} cm, "
+          f"loss counters {losses.tolist()}; launches {json.dumps(launches)}; "
+          f"call shapes {json.dumps(shapes)}", flush=True)
+    print(f"sized: ms a sweep by chunk {[round(v, 2) for v in chunk_ms]} against "
+          f"the datasheet replay's on the same sweeps "
+          f"{[round(v, 2) for v in replay_chunk_ms[:len(chunk_ms)]]} (its first "
+          f"chunk is this call's first); card: {card}", flush=True)
+    failures = []
+    if launches != _expected_launches(SIZED_SWEEPS):
+        failures.append(f"launches {launches}")
+    if not (np.isfinite(packed).all() and ate <= ATE_GATE_M) or losses.any():
+        failures.append(f"ATE {ate}, loss counters {losses}")
+    for name, want in datasheet.items():
+        if not set(shapes[name]) <= want:
+            failures.append(f"{name} shapes {shapes[name]}, datasheet {want}")
+    if failures:
+        raise AssertionError("sized phase: " + "; ".join(failures))
+    out = {"p_cap": cfg.lidar.max_points_per_ring, "sweep_cap": cap,
+           "sweeps": SIZED_SWEEPS, "ate_m": ate, "launches": launches,
+           "ms_per_sweep_by_chunk": chunk_ms,
+           "datasheet_ms_per_sweep_same_sweeps": replay_chunk_ms[:len(chunk_ms)],
+           "engine_calls": engine_calls(calls, "sized",
+                                        ("grid_windows", "greedy_pick_rows"))}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sized: the phase took {out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
+def oracle_gates(dev) -> tuple[dict, list]:
+    """tests/test_oracle.py's VLP-16 gates for the port's driver:
+    ``LoamDriver(cfg, dev, system_delay=0).run`` on 30 noisy turning
+    sweeps (the 10-sweep gate's input is their first 10: each sweep's
+    noise comes from its own seed, and the driver goes sweep by sweep)
+    against the NumPy oracle's fused poses (ORACLE_NPZ). Returns the
+    readings by sweep count and the gates that failed."""
+    cfg = LoamConfig.preset("VLP-16")
+    sweeps, _ = synthetic.bench_sweeps(max(ORACLE_SWEEPS), cfg.lidar)
+    est = LoamDriver(cfg, dev, system_delay=0).run(sweeps)
+    readings, failed = {}, []
+    with np.load(ORACLE_NPZ) as ref:
+        for n in ORACLE_SWEEPS:
+            oracle, gt = ref[f"fused_{n}"][:, 3:], ref[f"gt_{n}"]
+            r = readings[n] = {
+                "cross_ate_m": ate_rmse(est[:n], oracle, align=True),
+                "cross_rpe_m": rpe_rmse(est[:n], oracle),
+                "port_ate_m": ate_rmse(est[:n], gt, align=True),
+                "oracle_ate_m": ate_rmse(oracle, gt, align=True)}
+            if not (np.isfinite(est[:n]).all() and r["cross_ate_m"] < ORACLE_CROSS_M
+                    and r["port_ate_m"] < ORACLE_GT_M
+                    and r["oracle_ate_m"] < ORACLE_GT_M):
+                failed.append(f"{n} sweeps: {r}")
+            if n == max(ORACLE_SWEEPS) and not (
+                    r["cross_rpe_m"] < ORACLE_CROSS_M
+                    and r["port_ate_m"] < ORACLE_RATIO * r["oracle_ate_m"]):
+                failed.append(f"{n} sweeps, RPE and ratio: {r}")
+    return readings, failed
+
+
+def run_oracle(dev, card: str) -> tuple[dict, dict]:
+    """The oracle gates on the card (``oracle_gates``), with the launch
+    counts set to 0 before and read after: K1 once and K2 twice a sweep,
+    K3 and K4 as the dynamic GN stops. Returns the launches and the
+    readings."""
+    t_phase = time.perf_counter()
+    n = max(ORACLE_SWEEPS)
+    _sync(dev)
+    _zero_launches()
+    readings, failed = oracle_gates(dev)
+    launches = _read_launches()
+    for k, r in readings.items():
+        print(f"oracle: {k} sweeps, the card's driver against the NumPy oracle: "
+              f"ATE {r['cross_ate_m'] * 100:.3f} cm, RPE "
+              f"{r['cross_rpe_m'] * 100:.3f} cm; against the ground truth, the "
+              f"port {r['port_ate_m'] * 100:.3f} cm, the oracle "
+              f"{r['oracle_ate_m'] * 100:.3f} cm; card: {card}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"oracle: launches {json.dumps(launches)} over {n} sweeps; the phase "
+          f"took {seconds:.1f} s", flush=True)
+    if not (launches["grid_windows"] == n and launches["greedy_pick_rows"] == 2 * n
+            and launches["corresp_search"] > 0 and launches["grouped_window_knn"] > 0):
+        failed.append(f"launches {launches}")
+    if failed:
+        raise AssertionError("oracle phase: " + "; ".join(failed))
+    return launches, {"readings": {str(k): v for k, v in readings.items()},
+                      "launches": launches, "seconds": seconds}
 
 
 def main() -> int:
@@ -1284,7 +1570,8 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     floor_ms = launch_floor(dev)
-    kernels = check_kernels(dev)
+    sized = sized_config()
+    kernels = check_kernels(dev, sized)
     launches, greedy_calls, replay_packed, chunk_ms, rate = run_engine(dev, card)
     cfg = LoamConfig.preset("VLP-16")
     seq = synthetic.bench_sequence(LIVE_SWEEPS, cfg.lidar, SWEEP_CAP)
@@ -1301,6 +1588,9 @@ def main() -> int:
     entry_launches, entry = run_entry_points(dev, card)
     gates = run_trajectory_gates(dev, replay_packed)
     batched = run_batched(dev, card, replay_packed, chunk_ms)
+    multi = run_multiprocess(dev, card)
+    sized_launches, sized_out = run_sized(dev, card, sized, chunk_ms)
+    oracle_launches, oracle = run_oracle(dev, card)
     for row in kernels:
         if row["name"].endswith("_lanes"):
             kernel = row["name"][:-len("_lanes")]
@@ -1309,7 +1599,12 @@ def main() -> int:
             row["launches"] = n
             row["launches_per_batched_sweep"] = n / (2 * LANE_SWEEPS)
             row["batched_calls"] = batched["calls"][row["name"]]
+            row["multiprocess"] = {"launches_by_rank": [
+                w["launches"][kernel] for w in multi["workers"]]}
             continue
+        row["sized"] = {"launches": sized_launches[row["name"]],
+                        "engine_calls": sized_out["engine_calls"][row["name"]]}
+        row["oracle"] = {"launches": oracle_launches[row["name"]]}
         if row["name"] == "greedy_pick_rows":
             row["engine"] = engine_greedy(greedy_calls)
         row["launches"] = launches[row["name"]]
@@ -1329,6 +1624,10 @@ def main() -> int:
                       "trajectory_gates": gates,
                       "batched": {k: v for k, v in batched.items()
                                   if k != "calls"},
+                      "multiprocess": multi,
+                      "sized": {k: v for k, v in sized_out.items()
+                                if k != "engine_calls"},
+                      "oracle": oracle,
                       "segment_sum_lanes": batched["calls"]["segment_sum_lanes"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

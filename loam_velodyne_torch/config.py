@@ -264,6 +264,33 @@ class LoamConfig:
         lidar = LIDAR_PRESETS[lidar_name]
         return LoamConfig(lidar=lidar, **overrides)
 
+    def sized_for_stream(self, max_sweep_points: int,
+                         margin: float = 1.25) -> "LoamConfig":
+        """Bucket the ring capacity to the OBSERVED stream density.
+
+        The datasheet presets size ``max_points_per_ring`` for the
+        sensor's maximum firing rate (e.g. HDL-64E at ~2.3k points/ring/
+        rev), but every fixed-shape pass — the ingest ring sort, the
+        (R, P) feature grid, the class-ordered compaction sort — costs
+        O(R * P) regardless of how many rows are real. A capture denser
+        than its stream needs pays that padding on every sweep: the
+        reference's dynamically-sized pcl clouds only ever process real
+        points (laserCloudIn.size() loops, MultiScanRegistration.cpp:
+        158-234), so capacity-vs-stream mismatch is pure overhead the
+        reference never has. This picks the 128-aligned (Pallas lane
+        tile) bucket covering ``max_sweep_points / n_rings`` with a
+        margin for ring unevenness, capped at the datasheet preset, and
+        recomputes the derived capacities. Ring overflow past the bucket
+        is counted by the ``ingest_dropped`` telemetry — a consumer
+        seeing drops should re-run with a bigger margin.
+        """
+        import math
+        per_ring = math.ceil(max_sweep_points / self.lidar.n_rings * margin)
+        p = min(self.lidar.max_points_per_ring,
+                max(_round_up(per_ring, 128), 128))
+        lidar = dataclasses.replace(self.lidar, max_points_per_ring=p)
+        return dataclasses.replace(self, lidar=lidar, capacities=None)
+
     @staticmethod
     def from_dict(d: dict) -> "LoamConfig":
         """The configuration whose fields are the nested dict ``d``
@@ -274,3 +301,12 @@ class LoamConfig:
             odometry=OdometryConfig(**d["odometry"]),
             mapping=MappingConfig(**d["mapping"]),
             capacities=Capacities(**d["capacities"]))
+
+
+def stream_cap(sweeps) -> int:
+    """128-aligned input padding covering the stream's densest sweep
+    (``bench.py::stream_cap``): the sweep capacity N to pair with
+    ``LoamConfig.sized_for_stream``. N drives the ingest ring sort and
+    the ring histogram, O(N) per sweep whether rows are real or
+    padding."""
+    return max(128, _round_up(max(len(s) for s in sweeps), 128))

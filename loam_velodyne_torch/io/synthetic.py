@@ -211,20 +211,49 @@ def generate_sequence(n_sweeps: int, lidar: LidarConfig = VLP16,
     return sweeps, gt, end_times
 
 
-def bench_sequence(n_sweeps: int, lidar: LidarConfig = VLP16, cap: int = 32768,
-                   n_azimuth: int = 900):
-    """The benchmark sequence (noisy turning trajectory at 1 m/s), each
-    sweep padded to ``cap`` rows: (xyz (n, cap, 3) float32, mask
-    (n, cap) bool, gt_positions (n, 3))."""
+def bench_sweeps(n_sweeps: int, lidar: LidarConfig = VLP16,
+                 n_azimuth: int = 900):
+    """The benchmark sequence (noisy turning trajectory at 1 m/s, 5 mm
+    of noise, each sweep's from its own seed), unpadded: (sweeps, each
+    (N_i, 3) float32; gt_positions (n, 3)). The input of
+    tests/test_oracle.py's VLP-16 gates."""
     sweeps, gt, _ = generate_sequence(
         n_sweeps, lidar=lidar, n_azimuth=n_azimuth, speed=1.0,
         noise_std=0.005, traj=turning_trajectory(speed=1.0))
-    xyz = np.zeros((n_sweeps, cap, 3), np.float32)
-    mask = np.zeros((n_sweeps, cap), bool)
+    return sweeps, gt
+
+
+def noisy_turning(n_sweeps: int, lidar: LidarConfig, seed: int, speed: float):
+    """The turning trajectory at ``speed`` (900 azimuths), with 5 mm of
+    point noise drawn from one generator seeded by ``seed``: a sequence
+    of its own for every seed and speed (sweeps, each (N_i, 3) float32;
+    gt_positions (n, 3))."""
+    sweeps, gt, _ = generate_sequence(
+        n_sweeps, lidar=lidar, n_azimuth=900, speed=speed,
+        traj=turning_trajectory(speed=speed))
+    rng = np.random.default_rng(seed)
+    return [(pts + rng.normal(0.0, 0.005, pts.shape)).astype(np.float32)
+            for pts in sweeps], gt
+
+
+def pad_sweeps(sweeps: list, cap: int):
+    """(N_i, 3) sweeps, each padded to (or cut at) ``cap`` rows: (xyz
+    (n, cap, 3) float32, mask (n, cap) bool)."""
+    xyz = np.zeros((len(sweeps), cap, 3), np.float32)
+    mask = np.zeros((len(sweeps), cap), bool)
     for i, pts in enumerate(sweeps):
         k = min(len(pts), cap)
         xyz[i, :k], mask[i, :k] = pts[:k], True
-    return xyz, mask, gt
+    return xyz, mask
+
+
+def bench_sequence(n_sweeps: int, lidar: LidarConfig = VLP16, cap: int = 32768,
+                   n_azimuth: int = 900):
+    """The benchmark sequence (``bench_sweeps``), each sweep padded to
+    ``cap`` rows: (xyz (n, cap, 3) float32, mask (n, cap) bool,
+    gt_positions (n, 3))."""
+    sweeps, gt = bench_sweeps(n_sweeps, lidar, n_azimuth)
+    return (*pad_sweeps(sweeps, cap), gt)
 
 
 def imu_stream(n_sweeps: int, rate_hz: float = 100.0, t0: float = -0.2,

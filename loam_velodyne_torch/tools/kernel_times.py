@@ -32,20 +32,25 @@ OPS_PER_DISTANCE = 9    # 3 sub, 3 mul, 2 add, 1 compare against the best
 
 
 def main_path_inputs(dev: torch.device, seed: int = 0,
-                     preset: str = "VLP-16") -> dict:
-    """Each case's wrapper arguments at the main-path shapes of a lidar
-    preset (``LoamConfig.preset(preset)`` at datasheet capacities). At
-    VLP-16: K1 16 rings x 4 columns x P=2048 of a 32,768-row sweep; K2
+                     cfg: LoamConfig | None = None,
+                     sweep_cap: int | None = None) -> dict:
+    """Each case's wrapper arguments at the main-path shapes of ``cfg``
+    (``LoamConfig.preset("VLP-16")`` at datasheet capacities by default)
+    with sweeps padded to ``sweep_cap`` rows (the capacity of the full
+    cloud by default). A ``LoamConfig.sized_for_stream`` config and
+    ``config.stream_cap`` give the sized shapes: at the bench's VLP-16
+    stream (14,464 rows, P = 1,152) K1 16 x 4 x 1,152 and K2 96 rows x
+    256. At VLP-16: K1 16 rings x 4 columns x P=2048 of a 32,768-row sweep; K2
     96 (ring, region) rows x 384, corner (96 steps) and flat (64); K3
     corner 256 queries x 1,920 rows and surf 384 x 8,192; K4 16 (corner)
     and 32 (surf) groups of 128 queries x windows of 1,024 rows. At
     HDL-64E: K1 64 x 4 x 2,304 of 147,456 rows; K2 384 rows x 512; K3
     768 x 7,680 and 1,536 x 16,384; K4 the same (the mapping capacities
     do not depend on the preset)."""
-    cfg = LoamConfig.preset(preset)
+    cfg = cfg or LoamConfig.preset("VLP-16")
     reg, caps, m = cfg.registration, cfg.capacities, cfg.mapping
     n_rings, p_cap = cfg.lidar.n_rings, cfg.lidar.max_points_per_ring
-    sweep_cap = caps.full_cloud
+    sweep_cap = sweep_cap or caps.full_cloud
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     out = {}
@@ -104,15 +109,15 @@ def main_path_inputs(dev: torch.device, seed: int = 0,
 LANE_SUFFIX = "_lanes"
 
 
-def lane_inputs(dev: torch.device, seed: int = 0, preset: str = "VLP-16",
-                lanes: int = 8) -> dict:
+def lane_inputs(dev: torch.device, seed: int = 0,
+                cfg: LoamConfig | None = None, lanes: int = 8) -> dict:
     """The lane forms' arguments: each main-path case drawn ``lanes``
     times (seeds ``seed`` .. ``seed + lanes - 1``) and stacked on a
     leading lane axis, under the case's name + ``_lanes`` (at VLP-16 and
     B = 8: K1 cols (8, 4, 34,816), starts (8, 16); K2 (8, 96, 384); K3
     8 x 256 x 1,920 and 8 x 384 x 8,192; K4 (8, 16 / 32, 128, 3) against
     (8, 16 / 32, 1,024, 3))."""
-    per = [main_path_inputs(dev, seed + i, preset) for i in range(lanes)]
+    per = [main_path_inputs(dev, seed + i, cfg) for i in range(lanes)]
     return {case + LANE_SUFFIX: tuple(
                 torch.stack(vals) if isinstance(vals[0], torch.Tensor)
                 else vals[0] for vals in zip(*(p[case] for p in per)))

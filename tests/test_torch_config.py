@@ -107,3 +107,43 @@ def test_ate_matches_jax(align):
     assert got == jmetrics.ate_rmse(est, gt, align=align)
     if align:
         assert got < 0.2                # the rotation and offset are removed
+
+
+def test_sized_for_stream_buckets_ring_capacity():
+    """tests/test_config.py's sized_for_stream case on the port: the
+    128-aligned ring bucket covering the observed density (with margin),
+    capped at the datasheet preset, at least 128, and the derived
+    capacities recomputed (the quota-driven feature capacities
+    untouched)."""
+    cfg = tconfig.LoamConfig.preset("HDL-64E")
+    sized = cfg.sized_for_stream(57600)    # 900 a ring, x 1.25 = 1125
+    assert sized.lidar.max_points_per_ring == 1152
+    assert sized.capacities.full_cloud == 64 * 1152
+    assert sized.capacities.sharp == cfg.capacities.sharp
+    assert sized.capacities.less_sharp == cfg.capacities.less_sharp
+    assert (cfg.sized_for_stream(10_000_000).lidar.max_points_per_ring
+            == cfg.lidar.max_points_per_ring)
+    assert cfg.sized_for_stream(1).lidar.max_points_per_ring == 128
+
+
+@pytest.mark.parametrize("points", [1, 14_400, 57_600, 10_000_000])
+@pytest.mark.parametrize("preset", ["VLP-16", "HDL-32", "HDL-64E"])
+def test_sized_for_stream_matches_jax(preset, points):
+    want = jconfig.LoamConfig.preset(preset).sized_for_stream(points)
+    got = tconfig.LoamConfig.preset(preset).sized_for_stream(points)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    margin = tconfig.LoamConfig.preset(preset).sized_for_stream(points, 2.0)
+    assert (dataclasses.asdict(margin) == dataclasses.asdict(
+        jconfig.LoamConfig.preset(preset).sized_for_stream(points, 2.0)))
+
+
+def test_stream_cap_pads_the_densest_sweep_to_128():
+    """``config.stream_cap``, bench.py's padding: the densest sweep
+    rounded up to a multiple of 128, at least 128 (the bench's VLP-16
+    stream of 14,400-point sweeps: 14,464)."""
+    def sweeps(*sizes):
+        return [np.zeros((n, 3), np.float32) for n in sizes]
+    assert tconfig.stream_cap(sweeps(0, 1)) == 128
+    assert tconfig.stream_cap(sweeps(128)) == 128
+    assert tconfig.stream_cap(sweeps(5, 129, 7)) == 256
+    assert tconfig.stream_cap(sweeps(14_400, 13_000)) == 14_464

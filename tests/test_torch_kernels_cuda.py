@@ -426,3 +426,42 @@ def test_segment_sum_lanes_match_the_lanes_one_by_one():
     lengths = torch.from_numpy(lengths).to(dev)
     _equal([voxel.segment_sum_lanes(data, lengths)],
            [voxel.segment_sum_lanes_plain(data, lengths)])
+
+
+# The sized VLP-16 shapes: LoamConfig.sized_for_stream at the bench
+# stream's padding (config.stream_cap: 14,464 rows, P = 1,152): K1 16 x
+# 4 x 1,152 of 15,616 padded columns, K2 96 rows x 256; single-lane and
+# at B = 8.
+SIZED_CAP = 14464
+SIZED_CASES = {
+    "grid": (grid_kernel.grid_windows, grid_kernel.grid_windows_plain,
+             (16, 4, 1152)),
+    "greedy_corner": (greedy_kernel.greedy_pick_rows,
+                      greedy_kernel.greedy_pick_rows_plain, (96, 256)),
+    "greedy_flat": (greedy_kernel.greedy_pick_rows,
+                    greedy_kernel.greedy_pick_rows_plain, (96, 256)),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("case", list(SIZED_CASES))
+def test_sized_vlp16_shapes(case, lanes):
+    """K1 and K2 at the sized VLP-16 shapes, bit-equal to their plain
+    versions (lane by lane at B = 8)."""
+    from loam_velodyne_torch.config import LoamConfig
+    from loam_velodyne_torch.tools import kernel_times
+    dev = _device()
+    cfg = LoamConfig.preset("VLP-16").sized_for_stream(SIZED_CAP)
+    wrapper, plain, shape = SIZED_CASES[case]
+    draws = [kernel_times.main_path_inputs(dev, 17 + i, cfg=cfg,
+                                           sweep_cap=SIZED_CAP)[case]
+             for i in range(lanes)]
+    for args in draws:
+        got = _as_tuple(wrapper(*args))
+        assert tuple(got[0].shape) == shape
+        _equal(got, _as_tuple(plain(*args)))
+    if lanes > 1:
+        args = tuple(torch.stack(v) if isinstance(v[0], torch.Tensor) else v[0]
+                     for v in zip(*draws))
+        lane_form, twin, _ = LANE_FORMS[case + "_lanes"]
+        _equal(_as_tuple(lane_form(*args)), _as_tuple(twin(*args)))

@@ -6,7 +6,8 @@ A subprocess installs an import hook that refuses ``jax``, ``jaxlib``
 and ``loam_velodyne_tpu`` before importing anything; a stray import,
 including one inside a function, then fails. Besides importing every
 module, it drives chip_smoke's replay on the CPU at a tiny size: the
-simulated sequence, the engine (every stage) and the ATE; and the
+simulated sequence, the engine (every stage) and the ATE; the batched
+replay and the multi-process replay (in a one-process gloo group); the
 per-sweep driver with an IMU tracker through process_sweep, run_live,
 a checkpoint round trip and registered_cloud; and the loam-torch
 command (``cli.main(["run", "--device", "cpu", ...])``) on a tiny bag
@@ -86,6 +87,15 @@ assert (bout.packed[:, :, 18:] == packed[None, :, 18:]).all()
 pos = batched.replay_sequences(cfg, [[xyz[i][mask[i]] for i in range(2)]] * 2,
                                device="cpu", sweep_capacity=256)
 assert pos.shape == (2, 2, 3)
+
+# The multi-process replay, in a one-process gloo group.
+from loam_velodyne_torch.parallel import multihost
+from loam_velodyne_torch.tools import dryrun_dcn
+multihost.init(f"localhost:{dryrun_dcn._free_port()}", 1, 0)
+gpos = multihost.replay_global(cfg, [[xyz[i][mask[i]] for i in range(2)]] * 2,
+                               chunk=2, sweep_capacity=256, device="cpu")
+chip_smoke.torch.distributed.destroy_process_group()
+assert gpos.shape == (2, 2, 3) and (gpos == pos).all()
 
 import os, tempfile
 import numpy as np

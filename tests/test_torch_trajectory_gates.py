@@ -25,6 +25,19 @@ The card has no JAX, so every reference the card is held to is a file:
   (JAX on the CPU, VLP-16 at datasheet capacities: 2.3 GB at its peak,
   a few minutes), or only ``golden_driver`` with ``... golden``, which
   prints the JAX driver's deviation from the golden by sweep.
+- ``tests/oracle_trajectory.npz``: tests/reference_oracle.py's NumPy
+  pipeline (the reference C++ pipeline, transliterated) on the inputs
+  of tests/test_oracle.py's VLP-16 gates, 10 and 30 noisy turning
+  sweeps: its fused poses and the ground truth. The port is held to
+  those gates against it: its CPU driver here (slow), the card's in
+  ``chip_smoke.py``. Write it with
+
+      python tests/test_torch_trajectory_gates.py oracle
+
+  (NumPy only, about 5 minutes).
+- ``tests/multihost_jax.npz``: the JAX package on the four lanes of the
+  port's tiny two-process dry run (tests/test_torch_multihost.py reads
+  it); ``... multihost`` writes it (JAX on the CPU, about 5 minutes).
 """
 
 import os
@@ -40,6 +53,10 @@ GOLDEN_TOL = 2e-3           # tests/test_golden.py's tolerance
 N_GOLDEN = 6
 GOLDEN_GATE_SWEEPS = 3      # the sweeps before the second mapping frame
 N_BENCH, CHUNK, CAP = 48, 8, 32768
+MULTIHOST = os.path.join(HERE, "multihost_jax.npz")
+ORACLE = os.path.join(HERE, "oracle_trajectory.npz")
+ORACLE_SWEEPS = (10, 30)    # tests/test_oracle.py's two VLP-16 gates
+ORACLE_RECOMPUTED = 2       # the oracle's sweeps recomputed in tier-1
 
 
 def golden_sweeps():
@@ -140,7 +157,121 @@ def jax_golden_run() -> np.ndarray:
     return np.stack(drv.trajectory)
 
 
+def oracle_input(n: int):
+    """The input of tests/test_oracle.py's VLP-16 gates: n noisy turning
+    sweeps, from the port's copy of the simulator: (sweeps, gt (n, 3))."""
+    from loam_velodyne_torch.io import synthetic
+    return synthetic.bench_sweeps(n)
+
+
+def oracle_run(sweeps) -> np.ndarray:
+    """tests/reference_oracle.py's pipeline (NumPy only): (n, 6) fused
+    poses."""
+    from reference_oracle import OraclePipeline
+    return OraclePipeline().run(sweeps)
+
+
+def test_oracle_reference_is_the_oracle_on_the_port_simulator():
+    """The committed oracle run: its ground truth is the port's
+    simulator's on the same input, and its first ORACLE_RECOMPUTED
+    fused poses are the oracle's, recomputed (float64 NumPy: to 1e-9)."""
+    with np.load(ORACLE) as ref:
+        files = {n: (ref[f"fused_{n}"], ref[f"gt_{n}"]) for n in ORACLE_SWEEPS}
+    for n, (fused, gt) in files.items():
+        assert fused.shape == (n, 6) and np.isfinite(fused).all()
+        np.testing.assert_array_equal(gt, oracle_input(n)[1])
+    sweeps, _ = oracle_input(ORACLE_RECOMPUTED)
+    np.testing.assert_allclose(oracle_run(sweeps),
+                               files[10][0][:ORACLE_RECOMPUTED], rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.slow
+def test_port_driver_within_the_oracle_gates():
+    """LoamDriver(device="cpu") against the NumPy oracle, with
+    tests/test_oracle.py's gates at 10 and 30 sweeps
+    (``chip_smoke.oracle_gates``, which the card runs too)."""
+    import torch
+
+    import chip_smoke
+    readings, failed = chip_smoke.oracle_gates(torch.device("cpu"))
+    print(readings)
+    assert not failed, failed
+
+
+def jax_multihost_run():
+    """The JAX package on the four lanes of the port's tiny two-process
+    dry run (``loam_velodyne_torch/tools/dryrun_dcn.py --preset tiny``:
+    ranks 0 and 1, lanes 0 and 1, on the 1/128 m grid), in one process
+    on the CPU: (fused positions (4, 8, 3) of ``make_batched_chunk``,
+    the static cadence, in the dry run's chunks; those of
+    ``replay_sequences`` on a one-CPU mesh, the dynamic batched step;
+    the chunk's telemetry counters)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from loam_velodyne_tpu.config import LidarConfig
+    from loam_velodyne_tpu.models import engine
+    from loam_velodyne_tpu.ops.scan import RawSweep
+    from loam_velodyne_tpu.parallel import replay
+    from loam_velodyne_torch.tools import dryrun_dcn
+
+    cfg = dataclasses.replace(
+        replay.tiny_config(),
+        lidar=LidarConfig("tiny", -15.0, 15.0, 4, max_points_per_ring=512),
+        capacities=None)
+    chunk, cap = dryrun_dcn.tiny_case(0)[3:]
+    lanes = [lane for r in range(dryrun_dcn.N_PROC)
+             for lane in dryrun_dcn.tiny_case(r).lanes]
+    b, t = len(lanes), len(lanes[0])
+    run = replay.make_batched_chunk(cfg, donate=False)
+    states = replay.stack_states([engine.EngineState.create(cfg)
+                                  for _ in range(b)])
+    fused, counters = [], []
+    for s in range(0, t, chunk):
+        xyz = np.zeros((b, chunk, cap, 3), np.float32)
+        mask = np.zeros((b, chunk, cap), bool)
+        for i, seq in enumerate(lanes):
+            for j, pts in enumerate(seq[s:s + chunk]):
+                xyz[i, j, :len(pts)], mask[i, j, :len(pts)] = pts[:cap], True
+        states, outs = run(states, RawSweep(jnp.asarray(xyz), jnp.asarray(mask)))
+        packed = np.asarray(outs.packed)
+        fused.append(packed[:, :, 15:18])
+        counters.append(packed[:, :, 20:28])
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("data",))
+    dynamic = replay.replay_sequences(cfg, lanes, mesh, sweep_capacity=cap)
+    return (np.concatenate(fused, 1), dynamic,
+            np.concatenate(counters, 1))
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "multihost":
+        sys.path.insert(0, os.path.dirname(HERE))
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        chunked, dynamic, counters = jax_multihost_run()
+        np.savez_compressed(MULTIHOST, chunked=chunked, dynamic=dynamic)
+        print(f"wrote {MULTIHOST}: {chunked.shape}; the dynamic batched step "
+              f"against the static chunk: {np.abs(dynamic - chunked).max():.3g}; "
+              f"largest displacement {np.abs(chunked).max():.3f} m; telemetry "
+              f"counters {counters.sum((0, 1)).tolist()}")
+    if len(sys.argv) > 1 and sys.argv[1] == "oracle":
+        sys.path[:0] = [HERE, os.path.dirname(HERE)]
+        arrays = {}
+        for n in ORACLE_SWEEPS:
+            sweeps, gt = oracle_input(n)
+            arrays[f"fused_{n}"], arrays[f"gt_{n}"] = oracle_run(sweeps), gt
+        np.savez_compressed(ORACLE, **arrays)
+        from loam_velodyne_torch.eval.metrics import ate_rmse
+        print(f"wrote {ORACLE}: " + "; ".join(
+            f"{n} sweeps, oracle-vs-gt ATE "
+            f"{ate_rmse(arrays[f'fused_{n}'][:, 3:], arrays[f'gt_{n}'], align=True) * 100:.3f} cm"
+            for n in ORACLE_SWEEPS) + "; the 10-sweep run against the "
+            f"30-sweep run's first 10: "
+            f"{np.abs(arrays['fused_10'] - arrays['fused_30'][:10]).max():.3g}")
     if len(sys.argv) > 1 and sys.argv[1] in ("regen", "golden"):
         sys.path.insert(0, os.path.dirname(HERE))
         os.environ["JAX_PLATFORMS"] = "cpu"
