@@ -84,8 +84,14 @@ K4's shapes those of the datasheet capacities; K1 and K2 also run at
 its shapes in the kernel phase (the cases ending in ``_sized``). The
 oracle gates (``run_oracle``): the card's driver against the NumPy
 oracle's committed run (``tests/oracle_trajectory.npz``) with
-tests/test_oracle.py's gates at 10 and 30 sweeps. It imports only
-``loam_velodyne_torch`` (never JAX or the JAX package).
+tests/test_oracle.py's gates at 10 and 30 sweeps. Last, the bench
+(``run_bench``): ``loam_velodyne_torch/bench.py`` with
+``--headline-only`` at 16 sweeps and B = 2 in this process, its line
+(printed as the bench prints it) held to the JAX bench's headline keys
+(BENCH_LATEST.json), ATE <= 5 cm and zero telemetry, each kernel's
+calls counted by lane count (single-lane and at B = 2) and every call
+launched. It imports only ``loam_velodyne_torch`` (never JAX or the JAX
+package).
 
 Run from the repository root:  python3 chip_smoke.py
 Every failure raises (non-zero exit). The last line of standard output
@@ -96,9 +102,11 @@ at the top level and every case under ``cases``, its launches on the
 per-sweep path under ``per_sweep_path``, on the entry points under
 ``entry_points`` and on the HDL-64E run under ``hdl64e``, the launch
 floor, and the phases' numbers under ``per_sweep``, ``entry_points``,
-``trajectory_gates``, ``batched``, ``multiprocess``, ``sized`` and
-``oracle``; a lane form's row has its launches over the batched phase,
-its engine calls under ``batched_calls`` and each worker's launches
+``trajectory_gates``, ``batched``, ``multiprocess``, ``sized``,
+``oracle`` and ``bench``; every row has its launches and calls in the
+bench phase under ``bench``; a lane form's row has its launches over
+the batched phase, its engine calls under ``batched_calls`` and each
+worker's launches
 under ``multiprocess``; a single-lane row its launches and engine calls
 in the sized run under ``sized`` and its launches in the oracle run
 under ``oracle``.
@@ -118,6 +126,7 @@ import time
 import numpy as np
 import torch
 
+from loam_velodyne_torch import bench as port_bench
 from loam_velodyne_torch import cli
 from loam_velodyne_torch.config import HDL64E, LoamConfig, stream_cap
 from loam_velodyne_torch.eval.metrics import ate_rmse, rpe_rmse
@@ -125,7 +134,8 @@ from loam_velodyne_torch.io import driver as driver_mod
 from loam_velodyne_torch.io import kitti, native, pcap, rosbag, synthetic
 from loam_velodyne_torch.io.driver import LoamDriver
 from loam_velodyne_torch.io.live import LiveFeeder
-from loam_velodyne_torch.models.engine import Engine
+from loam_velodyne_torch.models.engine import Engine, sync
+from loam_velodyne_torch.models.engine import card as engine_card
 from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
                                      greedy_kernel, grid_kernel, knn_kernel,
                                      neighbors, scan, voxel)
@@ -236,17 +246,19 @@ ORACLE_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "oracle_trajectory.npz")
 ORACLE_SWEEPS = (10, 30)
 ORACLE_CROSS_M, ORACLE_GT_M, ORACLE_RATIO = 0.05, 0.15, 1.2
+# The bench phase: the port's bench (loam_velodyne_torch/bench.py) with
+# --headline-only at BENCH_SWEEPS sweeps and BENCH_LANES lanes, its line's
+# keys held to the JAX bench's headline line in BENCH_LATEST.json.
+BENCH_SWEEPS = 16
+BENCH_LANES = 2
+BENCH_LATEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "BENCH_LATEST.json")
 
 
 def _nvcc_version() -> str:
     out = subprocess.run([cuda_lib.nvcc(), "--version"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[-1]
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor):
@@ -256,7 +268,7 @@ def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor):
     packed, ends = [], []
     for s in range(0, xyz.shape[0], CHUNK):
         packed.append(engine.run_chunk(xyz[s:s + CHUNK], mask[s:s + CHUNK]).packed)
-        _sync(engine.device)
+        sync(engine.device)
         ends.append(time.perf_counter())
     return torch.cat(packed), ends
 
@@ -634,7 +646,7 @@ def _batched_replay(cfg: LoamConfig, xyz: torch.Tensor, mask: torch.Tensor):
     cadence = replay_mod.Cadence()
     packed, secs = [], []
     for s in range(0, xyz.shape[1], CHUNK):
-        _sync(xyz.device)
+        sync(xyz.device)
         t0 = time.perf_counter()
         states, outs = chunk(states, RawSweep(xyz[:, s:s + CHUNK].contiguous(),
                                               mask[:, s:s + CHUNK].contiguous()),
@@ -642,7 +654,7 @@ def _batched_replay(cfg: LoamConfig, xyz: torch.Tensor, mask: torch.Tensor):
         for _ in range(CHUNK):
             cadence = cadence.advance(cfg)
         packed.append(outs.packed)
-        _sync(xyz.device)
+        sync(xyz.device)
         secs.append(time.perf_counter() - t0)
     return torch.cat(packed, 1).cpu().numpy(), secs
 
@@ -737,7 +749,7 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
         failures.append("one lane differs from the single stream")
 
     # (a) identical lanes.
-    _sync(dev)
+    sync(dev)
     _zero_launches()
     packed, secs = _batched_replay(cfg, xyz_d, mask_d)
     out["identical_launches"] = _lane_launches(expected)
@@ -789,7 +801,7 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
             for seed, speed in zip(LANE_SEEDS, LANE_SPEEDS)]
     xyz_b = torch.from_numpy(np.stack([q[0] for q in seqs])).to(dev)
     mask_b = torch.from_numpy(np.stack([q[1] for q in seqs])).to(dev)
-    _sync(dev)
+    sync(dev)
     _zero_launches()
     with _recording_lane_calls() as calls:
         packed, secs = _batched_replay(cfg, xyz_b, mask_b)
@@ -898,7 +910,7 @@ def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
     sweeps = [xyz[i][mask[i]] for i in range(LIVE_SWEEPS)]
     gt = gt[:LIVE_SWEEPS]
     stamps = [0.1 * k for k in range(LIVE_SWEEPS)]
-    _sync(dev)
+    sync(dev)
     _zero_launches()
 
     # Dynamic schedules and the "auto" cadence against the replay's
@@ -924,7 +936,7 @@ def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
     live = _imu_driver(cfg, dev, xyz.shape[1], checkpoint_path=ckpt,
                        checkpoint_every=CKPT_EVERY)
     lat = live.run_live(sweeps, stamps)
-    _sync(dev)
+    sync(dev)
     poses = np.concatenate([np.stack(live.odom_trajectory),
                             np.stack(live.mapped_trajectory),
                             np.stack(live.trajectory)], axis=1)
@@ -976,7 +988,7 @@ def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
           f"checkpoint, largest pose deviation {res_dev:.3g}", flush=True)
     if not res_dev <= RESUME_TOL:
         raise AssertionError(f"resume: {res_dev} > {RESUME_TOL}")
-    _sync(dev)
+    sync(dev)
     launches = _read_launches()
     n = DYN_SWEEPS + LIVE_SWEEPS + (LIVE_SWEEPS - CKPT_EVERY)
     print(f"per-sweep kernel launches over {n} sweeps: {json.dumps(launches)}; "
@@ -1124,7 +1136,7 @@ def run_entry_points(dev, card: str) -> tuple[dict, dict]:
                         "chip_smoke", "entry")
     os.makedirs(work, exist_ok=True)
     out = {}
-    _sync(dev)
+    sync(dev)
     _zero_launches()
 
     # The VLP-16 wire-format pcap: validate records a golden, then gates.
@@ -1220,13 +1232,13 @@ def run_entry_points(dev, card: str) -> tuple[dict, dict]:
     rows[:, [3, 7, 11]] = hgt * [-1.0, -1.0, 1.0]     # LOAM camera -> KITTI
     poses = os.path.join(work, "kitti", "poses.txt")
     np.savetxt(poses, rows)
-    _sync(dev)
+    sync(dev)
     phase_launches = _read_launches()       # the phase's total so far
     _zero_launches()
     with _tracked_driver() as made, _recording_calls() as calls:
         rep = _cli(["run", "--source", "kitti", "--path", seq, "--lidar",
                     "HDL-64E", "--gt-poses", poses, "--sweeps", str(HDL_SWEEPS)])
-    _sync(dev)
+    sync(dev)
     hdl_launches = _read_launches()
     drv = made[0]
     losses = _loss_counters(drv)
@@ -1303,7 +1315,7 @@ def run_entry_points(dev, card: str) -> tuple[dict, dict]:
         raise AssertionError(f"info lists no CUDA device: {info}")
     out["profile_mean_step_ms"] = prof["mean_step_ms"]
 
-    _sync(dev)
+    sync(dev)
     launches = {k: v + phase_launches[k] for k, v in _read_launches().items()}
     print(f"entry-point kernel launches: {json.dumps(launches)}", flush=True)
     missing = [k for k, v in launches.items() if v == 0]
@@ -1448,7 +1460,7 @@ def run_sized(dev, card: str, sized: tuple, replay_chunk_ms: list
     xyz_d = torch.from_numpy(xyz).to(dev)
     mask_d = torch.from_numpy(mask).to(dev)
     engine = Engine(cfg, dev)
-    _sync(dev)
+    sync(dev)
     _zero_launches()
     t0 = time.perf_counter()
     with _recording_calls() as calls:
@@ -1532,7 +1544,7 @@ def run_oracle(dev, card: str) -> tuple[dict, dict]:
     readings."""
     t_phase = time.perf_counter()
     n = max(ORACLE_SWEEPS)
-    _sync(dev)
+    sync(dev)
     _zero_launches()
     readings, failed = oracle_gates(dev)
     launches = _read_launches()
@@ -1554,6 +1566,80 @@ def run_oracle(dev, card: str) -> tuple[dict, dict]:
                       "launches": launches, "seconds": seconds}
 
 
+def run_bench(dev, card: str) -> tuple[dict, dict]:
+    """The port's bench (``loam_velodyne_torch/bench.py``) with
+    ``--headline-only`` at BENCH_SWEEPS sweeps and B = BENCH_LANES, in
+    this process on ``dev``, with the launch counts set to 0 before and
+    read after: the line (printed by the bench) must have the JAX
+    bench's headline keys (BENCH_LATEST.json), finite positive rates,
+    ATE <= 5 cm and zero telemetry; each kernel must have launched
+    single-lane (the single stream and the live driver) and as a lane
+    form at B = BENCH_LANES (the identical and distinct batched
+    replays), K1 and K2 exactly once and twice a sweep of each of the
+    four runs, K3 and K4 at B = BENCH_LANES as the static cadence
+    implies. Every lane-form call of the run (single-lane calls are the
+    lane form at B = 1) is recorded and held bit-equal to its plain twin
+    afterwards (``batched_calls``), so the sized shapes the bench reads
+    its rates from are checked at both lane counts. The recording clones
+    each call's arguments inside the timed loops, so the phase's rates
+    are not the bench's. Returns the launches and the phase's numbers."""
+    t_phase = time.perf_counter()
+    with open(BENCH_LATEST) as f:
+        want = json.load(f)["lines"][0]
+    sync(dev)
+    _zero_launches()
+    with _recording_lane_calls() as calls:
+        lines = port_bench.main([str(BENCH_SWEEPS), str(BENCH_LANES),
+                                 "--headline-only", "--device", str(dev)])
+    launches = _read_launches()
+    line = lines[0]
+    extra = line["extra"]
+    n = BENCH_SWEEPS
+    by_lanes = {k: [a[0].shape[0] for a in calls[k + "_lanes"]]
+                for k in WRAPPERS}
+    lane_calls = {k: v.count(BENCH_LANES) for k, v in by_lanes.items()}
+    single_calls = {k: v.count(1) for k, v in by_lanes.items()}
+    expected_lane = {k: 2 * v for k, v in _expected_launches(n).items()}
+    out = {"line": line, "launches": launches, "lane_calls": lane_calls,
+           "single_lane_calls": single_calls,
+           "bench_seconds": time.perf_counter() - t_phase}
+    print(f"bench: {n} sweeps, B = {BENCH_LANES}, every kernel call recorded: "
+          f"{line['value']} sweeps/s over distinct lanes, "
+          f"{extra['batched_sweeps_per_sec']} identical, single stream "
+          f"{extra['single_stream_sweeps_per_sec']}, live p50 "
+          f"{extra['live_step_ms_p50']} ms, ATE {extra['ate_aligned_m']} m; "
+          f"launches {json.dumps(launches)}, of them at B = {BENCH_LANES} "
+          f"{json.dumps(lane_calls)} and single-lane {json.dumps(single_calls)}; "
+          f"the bench took {out['bench_seconds']:.1f} s; card: {card}",
+          flush=True)
+    failures = []
+    missing = port_bench.key_paths(want) ^ port_bench.key_paths(line)
+    if missing or line["metric"] != want["metric"]:
+        failures.append(f"keys differ from the JAX line: {sorted(missing)}")
+    rates = [line["value"], extra["batched_sweeps_per_sec"],
+             extra["single_stream_sweeps_per_sec"], extra["live_step_ms_p50"]]
+    if not all(np.isfinite(r) and r > 0 for r in rates):
+        failures.append(f"rates {rates}")
+    if not extra["ate_aligned_m"] <= ATE_GATE_M or any(extra["telemetry"].values()):
+        failures.append(f"ATE {extra['ate_aligned_m']}, telemetry "
+                        f"{extra['telemetry']}")
+    expected_single = {"grid_windows": 2 * n, "greedy_pick_rows": 4 * n}
+    if lane_calls != expected_lane or any(
+            single_calls[k] != v for k, v in expected_single.items()):
+        failures.append(f"calls at B = {BENCH_LANES} {lane_calls} (expected "
+                        f"{expected_lane}), single-lane {single_calls}")
+    if any(v == 0 for v in single_calls.values()) or launches != {
+            k: lane_calls[k] + single_calls[k] for k in launches}:
+        failures.append(f"launches {launches}: not every call launched")
+    if failures:
+        raise AssertionError("bench phase: " + "; ".join(failures))
+    out["calls"] = batched_calls(calls)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"bench: every call bit-equal to its plain twin; the phase took "
+          f"{out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1561,7 +1647,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = kernel_times.card()
+    card = engine_card()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {_nvcc_version()}", flush=True)
     t0 = time.perf_counter()
@@ -1591,9 +1677,16 @@ def main() -> int:
     multi = run_multiprocess(dev, card)
     sized_launches, sized_out = run_sized(dev, card, sized, chunk_ms)
     oracle_launches, oracle = run_oracle(dev, card)
+    print(f"before the bench phase: {time.perf_counter() - t0:.1f} s since "
+          f"the build began", flush=True)
+    bench_launches, bench_out = run_bench(dev, card)
     for row in kernels:
+        kernel = row["name"].removesuffix("_lanes")
+        row["bench"] = {"launches": bench_launches[kernel],
+                        "calls_at_b1": bench_out["single_lane_calls"][kernel],
+                        f"calls_at_b{BENCH_LANES}": bench_out["lane_calls"][kernel],
+                        "calls": bench_out["calls"][kernel + "_lanes"]}
         if row["name"].endswith("_lanes"):
-            kernel = row["name"][:-len("_lanes")]
             n = (batched["identical_launches"][kernel]
                  + batched["distinct_launches"][kernel])
             row["launches"] = n
@@ -1628,6 +1721,10 @@ def main() -> int:
                       "sized": {k: v for k, v in sized_out.items()
                                 if k != "engine_calls"},
                       "oracle": oracle,
+                      "bench": {**{k: v for k, v in bench_out.items()
+                                   if k not in ("launches", "calls")},
+                                "segment_sum_lanes":
+                                    bench_out["calls"]["segment_sum_lanes"]},
                       "segment_sum_lanes": batched["calls"]["segment_sum_lanes"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

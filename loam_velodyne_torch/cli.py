@@ -11,6 +11,7 @@ without a card.
     python -m loam_velodyne_torch.cli run --source kitti --path seq/velodyne \\
         --gt-poses seq.txt --lidar HDL-64E
     python -m loam_velodyne_torch.cli validate --path capture.pcap
+    python -m loam_velodyne_torch.cli bench --sweeps 48
     python -m loam_velodyne_torch.cli profile --sweeps 4
     python -m loam_velodyne_torch.cli info
     python -m loam_velodyne_torch.cli run --device cpu ...
@@ -20,14 +21,13 @@ launch-file params (launch/loam_velodyne.launch:7-8):
 
     --set registration.scan_period=0.1 --set odometry.max_iterations=25
 
-The JAX command's ``bench`` is not ported yet: it waits for a benchmark
-of the port.
+``bench`` runs ``loam_velodyne_torch.bench`` in this process (the JAX
+command starts ``bench.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -36,32 +36,10 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _apply_overrides(cfg, overrides):
-    """Apply dotted-path overrides to the frozen config tree."""
-    for item in overrides or []:
-        path, _, raw = item.partition("=")
-        if not _:
-            raise SystemExit(f"--set expects key=value, got {item!r}")
-        keys = path.split(".")
-        targets = [cfg]
-        for k in keys[:-1]:
-            targets.append(getattr(targets[-1], k))
-        field_types = {f.name: f.type for f in dataclasses.fields(targets[-1])}
-        if keys[-1] not in field_types:
-            raise SystemExit(f"unknown config field {path!r}")
-        old = getattr(targets[-1], keys[-1])
-        value = type(old)(json.loads(raw)) if not isinstance(old, str) else raw
-        obj = dataclasses.replace(targets[-1], **{keys[-1]: value})
-        for parent, k in zip(reversed(targets[:-1]), reversed(keys[:-1])):
-            obj = dataclasses.replace(parent, **{k: obj})
-        cfg = obj
-    return cfg
-
-
 def _build_config(args):
-    from loam_velodyne_torch.config import LoamConfig
+    from loam_velodyne_torch.config import LoamConfig, apply_overrides
     cfg = LoamConfig.preset(args.lidar)
-    cfg = _apply_overrides(cfg, args.set)
+    cfg = apply_overrides(cfg, args.set)
     return cfg
 
 
@@ -302,6 +280,16 @@ def cmd_validate(args):
         print(json.dumps(report))
 
 
+def cmd_bench(args):
+    from loam_velodyne_torch import bench
+    from loam_velodyne_torch.models.engine import require_device
+    try:
+        require_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}")
+    bench.main([str(args.sweeps), "--device", args.device])
+
+
 def cmd_profile(args):
     """Record a device trace (torch.profiler, Chrome trace) over N
     sweeps after a warm-up."""
@@ -349,9 +337,7 @@ def _device_flag(p):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="loam-torch",
-        description="LOAM in PyTorch with CUDA kernels for Hopper (the "
-                    "loam-tpu command's bench is not ported yet: it waits "
-                    "for a benchmark of the port)")
+        description="LOAM in PyTorch with CUDA kernels for Hopper")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run", help="run the pipeline over a sweep source")
@@ -409,6 +395,13 @@ def main(argv=None):
     valp.add_argument("--set", action="append", metavar="KEY=VALUE")
     _device_flag(valp)
     valp.set_defaults(fn=cmd_validate)
+
+    benchp = sub.add_parser("bench", help="run the headline benchmark")
+    benchp.add_argument("--sweeps", type=int, default=48,
+                        help="sweeps a sequence, a multiple of 8, at least 16 "
+                             "(default %(default)s)")
+    _device_flag(benchp)
+    benchp.set_defaults(fn=cmd_bench)
 
     profp = sub.add_parser("profile",
                            help="capture a device trace over N sweeps")

@@ -19,6 +19,7 @@ of the step is a static function of it.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 
@@ -310,3 +311,25 @@ def stream_cap(sweeps) -> int:
     the ring histogram, O(N) per sweep whether rows are real or
     padding."""
     return max(128, _round_up(max(len(s) for s in sweeps), 128))
+
+
+def apply_overrides(cfg, overrides):
+    """Apply dotted-path overrides to the frozen config tree."""
+    for item in overrides or []:
+        path, _, raw = item.partition("=")
+        if not _:
+            raise SystemExit(f"--set expects key=value, got {item!r}")
+        keys = path.split(".")
+        targets = [cfg]
+        for k in keys[:-1]:
+            targets.append(getattr(targets[-1], k))
+        field_types = {f.name: f.type for f in dataclasses.fields(targets[-1])}
+        if keys[-1] not in field_types:
+            raise SystemExit(f"unknown config field {path!r}")
+        old = getattr(targets[-1], keys[-1])
+        value = type(old)(json.loads(raw)) if not isinstance(old, str) else raw
+        obj = dataclasses.replace(targets[-1], **{keys[-1]: value})
+        for parent, k in zip(reversed(targets[:-1]), reversed(keys[:-1])):
+            obj = dataclasses.replace(parent, **{k: obj})
+        cfg = obj
+    return cfg

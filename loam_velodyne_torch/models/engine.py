@@ -18,6 +18,7 @@ static cadence that ``run_chunk(static_cadence=True)`` schedules.
 
 from __future__ import annotations
 
+import subprocess
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -42,6 +43,23 @@ def require_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return device
+
+
+def sync(device) -> None:
+    """Wait for the card's queue (nothing to wait for off the card)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card() -> str:
+    """The card's name and power limit, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them for the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 class EngineState(NamedTuple):

@@ -14,7 +14,6 @@ the module builds no kernel.
 
 from __future__ import annotations
 
-import subprocess
 import time
 
 import numpy as np
@@ -278,10 +277,3 @@ def device_profile(fn, reps: int = 20, attempts: int = 3) -> dict:
                          + (e.time_range.end - e.time_range.start) / reps / 1e3)
     return {"device_ops_per_call": len(best) / reps,
             "device_ms": sum(by_op.values()), "device_ms_by_op": by_op}
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]

@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -68,18 +67,13 @@ def _clone(tree):
     return tree.clone()
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def stage_times(state, raw, cfg: LoamConfig, mapping: bool) -> dict:
     """Milliseconds of each stage of one sweep, synced between stages."""
     dev = raw.xyz.device
     marks = [time.perf_counter()]
 
     def mark():
-        _sync(dev)
+        engine_mod.sync(dev)
         marks.append(time.perf_counter())
 
     grid, _ = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration)
@@ -133,17 +127,17 @@ def profile_calls(call, restore, dev: torch.device, n: int,
                   trace_dir: str) -> dict:
     """``call`` (n sweeps) once without and, after ``restore``, once with
     the profiler."""
-    _sync(dev)
+    engine_mod.sync(dev)
     t0 = time.perf_counter()
     call()
-    _sync(dev)
+    engine_mod.sync(dev)
     plain_s = time.perf_counter() - t0
 
     restore()
     with profiling.device_trace(trace_dir) as prof:
         t0 = time.perf_counter()
         call()
-        _sync(dev)
+        engine_mod.sync(dev)
         prof_s = time.perf_counter() - t0
     rows = prof.key_averages()
     out = {
@@ -173,11 +167,11 @@ def jacobian_ms(dev: torch.device, n: int = 512, reps: int = 20) -> float:
     pts = torch.randn(n, 3, generator=gen).to(dev)
     coeff = torch.randn(n, 3, generator=gen).to(dev)
     odometry_mod._jacobian_rows(tf, pts, coeff)
-    _sync(dev)
+    engine_mod.sync(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         odometry_mod._jacobian_rows(tf, pts, coeff)
-    _sync(dev)
+    engine_mod.sync(dev)
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
@@ -245,10 +239,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    result = {"card": card, "torch": torch.__version__}
+    result = {"card": engine_mod.card(), "torch": torch.__version__}
     dev, cfg = torch.device("cuda:0"), LoamConfig.preset("VLP-16")
     if args.lanes:
         result.update(run_lanes(dev, cfg, SWEEP_CAP, TRACE_DIR, args.lanes))

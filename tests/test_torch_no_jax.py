@@ -11,8 +11,9 @@ replay and the multi-process replay (in a one-process gloo group); the
 per-sweep driver with an IMU tracker through process_sweep, run_live,
 a checkpoint round trip and registered_cloud; and the loam-torch
 command (``cli.main(["run", "--device", "cpu", ...])``) on a tiny bag
-and a tiny wire-format pcap. The modules are found by walking the
-package, so a module added later is checked too.
+and a tiny wire-format pcap; and the bench's headline line (the single
+stream, both batched replays and the live latency). The modules are
+found by walking the package, so a module added later is checked too.
 """
 
 import pathlib
@@ -123,6 +124,14 @@ assert c.resume() and c.resumed_sweeps == 2
 reg_xyz, reg_mask = c.registered_cloud(sweeps[1], 0.1)
 assert reg_mask.any() and np.isfinite(reg_xyz).all()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+
+# The bench's headline line (every measurement of the bench) and its
+# artifact.
+from loam_velodyne_torch import bench
+bsweeps, bgt = chip_smoke.synthetic.bench_sweeps(4, cfg.lidar, n_azimuth=64)
+line = bench.headline_line(cfg, bsweeps, bgt, 2, 2, 256, "cpu")
+assert bench.key_paths(line) >= {"extra.live_max_attribution.max_sweep_index"}
+bench.write_artifact([line], os.path.join(tempfile.mkdtemp(), "bench.json"))
 
 # The loam-torch command on the CPU: a tiny bag with an IMU and a tiny
 # wire-format pcap.
