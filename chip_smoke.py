@@ -70,6 +70,25 @@ twin after the counts are read; the aggregate sweeps/s over all lanes
 is printed beside the single stream's. The lane forms have their own
 rows in the kernel phase (``*_lanes``, at B = 8 main-path draws).
 
+Then the compiled chunk (``run_graph``, ``models/graph.py``): the
+static chunk as CUDA graphs of one group of io_ratio sweeps, through
+the entry points a user calls, with the launch counts set to 0 before
+each run and read after it. ``Engine.run_chunk`` replays the 48-sweep
+bench sequence from a fresh state: every packed column bit-equal to
+the eager replay above, the same launches, ATE and zero telemetry;
+``make_batched_chunk``'s callable runs the batched phase's 8 distinct
+lanes, each bit-equal to the eager batched run. The last chunk of each
+runs under ``torch.cuda.set_sync_debug_mode("error")``. It prints each
+graph's warm-up, capture and instantiation seconds, nodes and pool
+memory, the batched run's peak memory, and the sweeps/s graphed beside
+eager on the same sweeps. Every earlier and later phase runs the eager
+chunk (the module function ``engine.run_chunk``,
+``make_eager_batched_chunk``; the bench phase with
+``make_batched_chunk`` returning the eager chunk), so that its
+recorders see every kernel call, and holds each call to its plain twin
+there; the multi-process workers run the graphs, held bit-equal to
+this process's eager lanes.
+
 Then three phases. The multi-process replay (``run_multiprocess``,
 ``parallel/multihost.py`` through ``tools/dryrun_dcn.py``): two fresh
 processes share the card over gloo, two lanes each, and gather all four
@@ -134,6 +153,7 @@ from loam_velodyne_torch.io import driver as driver_mod
 from loam_velodyne_torch.io import kitti, native, pcap, rosbag, synthetic
 from loam_velodyne_torch.io.driver import LoamDriver
 from loam_velodyne_torch.io.live import LiveFeeder
+from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models.engine import Engine, sync
 from loam_velodyne_torch.models.engine import card as engine_card
 from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
@@ -209,6 +229,8 @@ SINGLE_LANES = (0, 5)
 LANE_PREFIX_SWEEPS = 3
 LANE_PREFIX_TOL = 1e-6
 LANE_TOL = 0.03
+# The graph phase's batched depth (the batched phase's, LANE_SWEEPS).
+GRAPH_LANE_SWEEPS = 24
 # The golden (tests/test_golden.py: the JAX driver, 6 VLP-16 sweeps; its
 # 2e-3 gates the sweeps before the second mapping frame, from which the
 # JAX package itself no longer meets it on the CPU, see
@@ -261,13 +283,33 @@ def _nvcc_version() -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor):
-    """Run the sequence through the engine in chunks of CHUNK sweeps.
-    Returns the (n, 29) packed outputs and the host times at which each
-    chunk had finished on the device."""
+def replay(engine: Engine, xyz: torch.Tensor, mask: torch.Tensor,
+           graphed: bool = False, no_sync_from: int | None = None):
+    """Run the sequence through the engine in chunks of CHUNK sweeps:
+    eagerly (the module function ``engine.run_chunk`` on the engine's
+    state and cadence, every kernel call made from Python, so the
+    recorders see it), or ``graphed`` (``Engine.run_chunk``: the CUDA
+    graphs). Chunks from index ``no_sync_from`` on run under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the (n, 29)
+    packed outputs and the host times at which each chunk had finished
+    on the device."""
     packed, ends = [], []
-    for s in range(0, xyz.shape[0], CHUNK):
-        packed.append(engine.run_chunk(xyz[s:s + CHUNK], mask[s:s + CHUNK]).packed)
+    for i, s in enumerate(range(0, xyz.shape[0], CHUNK)):
+        x, m = xyz[s:s + CHUNK], mask[s:s + CHUNK]
+        if no_sync_from is not None and i >= no_sync_from:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if graphed:
+                outs = engine.run_chunk(x, m)
+            else:
+                engine.state, outs = engine_mod.run_chunk(
+                    engine.state, RawSweep(x, m), engine.cfg, engine.cadence)
+                for _ in range(x.shape[0]):
+                    engine.cadence = engine.cadence.advance(engine.cfg)
+        finally:
+            if no_sync_from is not None:
+                torch.cuda.set_sync_debug_mode(0)
+        packed.append(outs.packed)
         sync(engine.device)
         ends.append(time.perf_counter())
     return torch.cat(packed), ends
@@ -637,20 +679,33 @@ def _distinct_sequence(cfg: LoamConfig, seed: int, speed: float):
     return (*synthetic.pad_sweeps(sweeps, SWEEP_CAP), gt)
 
 
-def _batched_replay(cfg: LoamConfig, xyz: torch.Tensor, mask: torch.Tensor):
+def _batched_replay(cfg: LoamConfig, xyz: torch.Tensor, mask: torch.Tensor,
+                    no_sync_from: int | None = None, chunk=None):
     """B lanes of (B, n, N, 3) / (B, n, N) sweeps through the batched
-    chunk, CHUNK sweeps a call from one host cadence. Returns the packed
-    rows (B, n, 29) and each chunk's seconds."""
-    chunk = replay_mod.make_batched_chunk(cfg)
+    chunk, CHUNK sweeps a call from one host cadence: eagerly
+    (``make_eager_batched_chunk``, every lane-form call made from
+    Python, so the recorders see it) or through ``chunk`` (a callable
+    of ``make_batched_chunk``: the CUDA graphs). Chunks from index
+    ``no_sync_from`` on run under ``torch.cuda.set_sync_debug_mode(
+    "error")``. Returns the packed rows (B, n, 29) and each chunk's
+    seconds."""
+    if chunk is None:
+        chunk = replay_mod.make_eager_batched_chunk(cfg)
     states = replay_mod.create_states(cfg, xyz.shape[0], xyz.device)
     cadence = replay_mod.Cadence()
     packed, secs = [], []
-    for s in range(0, xyz.shape[1], CHUNK):
+    for i, s in enumerate(range(0, xyz.shape[1], CHUNK)):
         sync(xyz.device)
         t0 = time.perf_counter()
-        states, outs = chunk(states, RawSweep(xyz[:, s:s + CHUNK].contiguous(),
-                                              mask[:, s:s + CHUNK].contiguous()),
-                             cadence)
+        raws = RawSweep(xyz[:, s:s + CHUNK].contiguous(),
+                        mask[:, s:s + CHUNK].contiguous())
+        if no_sync_from is not None and i >= no_sync_from:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            states, outs = chunk(states, raws, cadence)
+        finally:
+            if no_sync_from is not None:
+                torch.cuda.set_sync_debug_mode(0)
         for _ in range(CHUNK):
             cadence = cadence.advance(cfg)
         packed.append(outs.packed)
@@ -713,7 +768,7 @@ def _fmt(xs) -> list:
 
 
 def run_batched(dev, card: str, replay_packed: np.ndarray,
-                replay_chunk_ms: list) -> dict:
+                replay_chunk_ms: list) -> tuple[dict, tuple]:
     """The batched replay (``parallel/replay.py``) at VLP-16 on the card:
     one lane of one chunk against the replay's rows (bit-equal), then
     LANES lanes of LANE_SWEEPS sweeps in chunks of CHUNK: (a) identical
@@ -725,7 +780,8 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     are set to 0 before each run and read after it; every lane-form call
     of (b) is recorded and, after the counts are read, held to its
     plain twin. All readings are printed before any gate is applied.
-    Returns the phase's numbers."""
+    Every run is the eager batched chunk. Returns the phase's numbers
+    and the distinct run's (xyz, mask, packed rows, chunk seconds)."""
     t_phase = time.perf_counter()
     cfg = LoamConfig.preset("VLP-16")
     xyz, mask, _ = synthetic.bench_sequence(LANE_SWEEPS, cfg.lidar, SWEEP_CAP)
@@ -844,7 +900,140 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     print(f"batched: the phase took {out['seconds']:.1f} s", flush=True)
     if failures:
         raise AssertionError("batched phase: " + "; ".join(failures))
-    return out
+    return out, (xyz_b, mask_b, packed, secs)
+
+
+def _graph_stats(graphs, label: str, card: str) -> list:
+    """Each captured graph's warm-up, capture and instantiation seconds,
+    nodes, the shared pool's bytes and launches a replay, printed."""
+    rows = []
+    for (_, shape, imu, branch), st in graphs.stats.items():
+        first = not branch[0][0]
+        rows.append({"group_shape": list(shape), "imu": imu,
+                     "first_group": first, **st._asdict()})
+        print(f"graph {label}, {'first' if first else 'steady'} group of "
+              f"{list(shape)}: warm-up {st.warmup_s:.2f} s, capture "
+              f"{st.capture_s:.2f} s, instantiation {st.instantiate_s:.2f} s, "
+              f"{st.nodes} nodes, the shared pool {st.pool_bytes / 2**20:.1f} "
+              f"MiB after it; launches a replay {json.dumps(st.launches)}; "
+              f"card: {card}", flush=True)
+    return rows
+
+
+def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
+              distinct: tuple, identical_rate: float) -> tuple[dict, dict]:
+    """The compiled chunk (``models/graph.py``): the static chunk replayed
+    as CUDA graphs of one group of io_ratio sweeps, through the entry
+    points a user calls, each run with the launch counts set to 0 before
+    and read after. (1) ``Engine.run_chunk`` over the 48-sweep bench
+    sequence from a fresh state: every packed column bit-equal to the
+    eager replay of ``run_engine`` (``replay_packed``), the launches
+    EXPECTED_LAUNCHES, ATE and zero telemetry; (2) ``make_batched_chunk``'s
+    callable over the batched phase's LANES distinct lanes
+    (``distinct``: their sweeps, the eager run's rows and chunk seconds),
+    its first GRAPH_LANE_SWEEPS sweeps bit-equal to the eager lanes, the
+    launches exact; its rate beside the eager distinct run's (recorded,
+    so slowed by the recorder's clones) and the eager identical lanes'
+    (``identical_rate``, unrecorded). The last chunk of each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``. Prints each graph's
+    capture and instantiation seconds, nodes and pool memory, the
+    batched run's peak memory, and the sweeps/s graphed against eager on
+    the same sweeps in this process (after the first chunk). Returns the
+    launches by run and the phase's numbers."""
+    t_phase = time.perf_counter()
+    cfg = LoamConfig.preset("VLP-16")
+    xyz, mask, gt = synthetic.bench_sequence(N_SWEEPS, cfg.lidar, SWEEP_CAP)
+    xyz_d = torch.from_numpy(xyz).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+    failures = []
+
+    # (1) The single stream.
+    engine = Engine(cfg, dev)
+    sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    packed, ends = replay(engine, xyz_d, mask_d, graphed=True,
+                          no_sync_from=N_SWEEPS // CHUNK - 1)
+    single_launches = _read_launches()
+    packed = packed.cpu().numpy()
+    chunk_ms = [1e3 * (b - a) / CHUNK for a, b in zip([t0] + ends, ends)]
+    differ = [int(c) for c in np.nonzero(
+        (packed != replay_packed).any(axis=0))[0]]
+    ate = ate_rmse(packed[:, 15:18], gt, align=True)
+    ate_eager = ate_rmse(replay_packed[:, 15:18], gt, align=True)
+    telemetry = packed[:, 20:28].sum(0).tolist()
+    rate = (N_SWEEPS - CHUNK) / (sum(chunk_ms[1:]) * CHUNK / 1e3)
+    rate_eager = (N_SWEEPS - CHUNK) / (sum(replay_chunk_ms[1:]) * CHUNK / 1e3)
+    print(f"graph single stream: {N_SWEEPS} sweeps through Engine.run_chunk "
+          f"(CUDA graphs), the last chunk under sync debug mode 'error'; "
+          f"columns differing from the eager replay: {differ} (of 29); "
+          f"launches {json.dumps(single_launches)}; ATE {ate * 100:.3f} cm "
+          f"(eager {ate_eager * 100:.3f} cm), telemetry {telemetry}", flush=True)
+    print(f"graph single stream: sweeps {CHUNK}-{N_SWEEPS - 1}: {rate:.3f} "
+          f"sweeps/s graphed ({1e3 / rate:.2f} ms a sweep; by chunk "
+          f"{[round(v, 2) for v in chunk_ms]} ms a sweep, the first with its "
+          f"captures) against {rate_eager:.3f} sweeps/s eager on the same "
+          f"sweeps in this process: {rate / rate_eager:.2f}x; card: {card}",
+          flush=True)
+    single_stats = _graph_stats(engine.graphs, "single stream", card)
+    if differ or single_launches != EXPECTED_LAUNCHES:
+        failures.append(f"single stream: columns {differ} differ, launches "
+                        f"{single_launches}")
+    if not ate <= ATE_GATE_M or any(telemetry):
+        failures.append(f"single stream: ATE {ate}, telemetry {telemetry}")
+
+    # (2) The batched chunk, LANES distinct lanes.
+    xyz_b, mask_b, eager_packed, eager_secs = distinct
+    n = GRAPH_LANE_SWEEPS
+    chunk = replay_mod.make_batched_chunk(cfg)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    packed_b, secs = _batched_replay(cfg, xyz_b[:, :n], mask_b[:, :n],
+                                     no_sync_from=n // CHUNK - 1, chunk=chunk)
+    batched_launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    lanes_equal = [bool(np.array_equal(packed_b[i], eager_packed[i, :n]))
+                   for i in range(LANES)]
+    rate_b = LANES * (n - CHUNK) / sum(secs[1:])
+    rate_b_eager = LANES * (n - CHUNK) / sum(eager_secs[1:n // CHUNK])
+    print(f"graph batched: {LANES} distinct lanes x {n} sweeps through "
+          f"make_batched_chunk (CUDA graphs), the last chunk under sync debug "
+          f"mode 'error'; each lane bit-equal to the eager batched run: "
+          f"{lanes_equal}; launches {json.dumps(batched_launches)}; peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"graph batched: sweeps {CHUNK}-{n - 1}: {rate_b:.3f} sweeps/s over "
+          f"all {LANES} lanes graphed (by chunk "
+          f"{[round(LANES * CHUNK / x, 3) for x in secs[1:]]}; "
+          f"{[round(1e3 * x / CHUNK, 2) for x in secs]} ms a batched sweep, "
+          f"the first with its captures) against {rate_b_eager:.3f} eager on "
+          f"the same sweeps in this process (its calls recorded): "
+          f"{rate_b / rate_b_eager:.2f}x; against the eager identical lanes "
+          f"(unrecorded) {identical_rate:.3f}: "
+          f"{rate_b / identical_rate:.2f}x; card: {card}", flush=True)
+    batched_stats = _graph_stats(chunk.graphs, f"batched B = {LANES}", card)
+    if not all(lanes_equal) or batched_launches != _expected_launches(n):
+        failures.append(f"batched: lanes equal {lanes_equal}, launches "
+                        f"{batched_launches}, expected {_expected_launches(n)}")
+    out = {"single": {"columns_differing": differ, "ate_m": ate,
+                      "ate_eager_m": ate_eager, "telemetry": telemetry,
+                      "launches": single_launches,
+                      "ms_per_sweep_by_chunk": chunk_ms,
+                      "sweeps_per_sec": rate, "eager_sweeps_per_sec": rate_eager,
+                      "graphs": single_stats},
+           "batched": {"lanes": LANES, "sweeps": n, "lanes_equal": lanes_equal,
+                       "launches": batched_launches, "chunk_s": secs,
+                       "sweeps_per_sec": rate_b,
+                       "eager_sweeps_per_sec": rate_b_eager,
+                       "eager_identical_sweeps_per_sec": identical_rate,
+                       "peak_memory_bytes": peak, "graphs": batched_stats},
+           "no_sync_chunks": "the last chunk of each run",
+           "seconds": time.perf_counter() - t_phase}
+    print(f"graph: the phase took {out['seconds']:.1f} s; card: {card}",
+          flush=True)
+    if failures:
+        raise AssertionError("graph phase: " + "; ".join(failures))
+    return {"single": single_launches, "batched": batched_launches}, out
 
 
 def run_trajectory_gates(dev, replay_packed: np.ndarray) -> dict:
@@ -1357,9 +1546,9 @@ def run_multiprocess(dev, card: str) -> dict:
     run (every lane form, exact). The two workers' gathered arrays must
     be equal, lane 0 of both ranks bit-equal, and every gathered lane
     bit-equal to each rank's two lanes replayed here through
-    ``make_batched_chunk`` at B = 2 after the workers have exited (alone
-    on the card, so its chunk seconds are the workers' yardstick), whose
-    ATE and loss counters are gated. All readings are printed before any
+    the eager batched chunk at B = 2 after the workers have exited (alone
+    on the card; the workers run the CUDA graphs, so this holds graphed
+    lanes to eager ones), whose ATE and loss counters are gated. All readings are printed before any
     gate is applied."""
     t_phase = time.perf_counter()
     os.makedirs(os.path.dirname(MULTI_REPORT), exist_ok=True)
@@ -1445,7 +1634,7 @@ def run_multiprocess(dev, card: str) -> dict:
 def run_sized(dev, card: str, sized: tuple, replay_chunk_ms: list
               ) -> tuple[dict, dict]:
     """The bench sequence's first SIZED_SWEEPS sweeps through
-    ``Engine.run_chunk`` at the sized config (``sized_config``), the
+    the eager chunk at the sized config (``sized_config``), the
     sweeps padded to its stream's padding: ATE and zero loss counters,
     the launches counted from 0 (exact), every kernel call recorded and
     held bit-equal to its plain version after the counts are read, K1's
@@ -1566,6 +1755,25 @@ def run_oracle(dev, card: str) -> tuple[dict, dict]:
                       "launches": launches, "seconds": seconds}
 
 
+@contextlib.contextmanager
+def _eager_batched_chunks():
+    """Inside the block ``make_batched_chunk`` returns the eager batched
+    chunk, so a phase's recorders see every lane-form call its callers
+    make (a graph replays without Python)."""
+    graphed = replay_mod.make_batched_chunk
+
+    def eager(cfg, with_imu=False, static_cadence=True):
+        if not static_cadence:
+            return graphed(cfg, with_imu, static_cadence)
+        return replay_mod.make_eager_batched_chunk(cfg, with_imu)
+
+    replay_mod.make_batched_chunk = eager
+    try:
+        yield
+    finally:
+        replay_mod.make_batched_chunk = graphed
+
+
 def run_bench(dev, card: str) -> tuple[dict, dict]:
     """The port's bench (``loam_velodyne_torch/bench.py``) with
     ``--headline-only`` at BENCH_SWEEPS sweeps and B = BENCH_LANES, in
@@ -1588,7 +1796,7 @@ def run_bench(dev, card: str) -> tuple[dict, dict]:
         want = json.load(f)["lines"][0]
     sync(dev)
     _zero_launches()
-    with _recording_lane_calls() as calls:
+    with _eager_batched_chunks(), _recording_lane_calls() as calls:
         lines = port_bench.main([str(BENCH_SWEEPS), str(BENCH_LANES),
                                  "--headline-only", "--device", str(dev)])
     launches = _read_launches()
@@ -1673,7 +1881,9 @@ def main() -> int:
                      replay_mean_ms_same_sweeps=replay_mean)
     entry_launches, entry = run_entry_points(dev, card)
     gates = run_trajectory_gates(dev, replay_packed)
-    batched = run_batched(dev, card, replay_packed, chunk_ms)
+    batched, distinct = run_batched(dev, card, replay_packed, chunk_ms)
+    graph_launches, graph = run_graph(dev, card, replay_packed, chunk_ms,
+                                      distinct, batched["sweeps_per_sec"])
     multi = run_multiprocess(dev, card)
     sized_launches, sized_out = run_sized(dev, card, sized, chunk_ms)
     oracle_launches, oracle = run_oracle(dev, card)
@@ -1686,6 +1896,8 @@ def main() -> int:
                         "calls_at_b1": bench_out["single_lane_calls"][kernel],
                         f"calls_at_b{BENCH_LANES}": bench_out["lane_calls"][kernel],
                         "calls": bench_out["calls"][kernel + "_lanes"]}
+        row["graph"] = {"launches": graph_launches[
+            "batched" if row["name"].endswith("_lanes") else "single"][kernel]}
         if row["name"].endswith("_lanes"):
             n = (batched["identical_launches"][kernel]
                  + batched["distinct_launches"][kernel])
@@ -1717,6 +1929,7 @@ def main() -> int:
                       "trajectory_gates": gates,
                       "batched": {k: v for k, v in batched.items()
                                   if k != "calls"},
+                      "graph": graph,
                       "multiprocess": multi,
                       "sized": {k: v for k, v in sized_out.items()
                                 if k != "engine_calls"},

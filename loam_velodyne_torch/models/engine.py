@@ -18,6 +18,7 @@ static cadence that ``run_chunk(static_cadence=True)`` schedules.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 from typing import NamedTuple, Optional, Tuple
 
@@ -25,6 +26,7 @@ import torch
 
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import fusion as fusion_mod
+from loam_velodyne_torch.models import graph as graph_mod
 from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
 from loam_velodyne_torch.ops import imu as imu_ops
@@ -233,6 +235,19 @@ def _stack(items):
     return torch.stack(items)
 
 
+def check_static_chunk(cfg: LoamConfig, k: int, cadence: Cadence) -> None:
+    """Raise unless K sweeps from ``cadence`` make a static-cadence
+    chunk: io_ratio >= 2, stack_frame_num == 1, the chunk on io_ratio
+    boundaries."""
+    io = cfg.odometry.io_ratio
+    if io < 2 or cfg.mapping.stack_frame_num != 1:
+        raise ValueError("static cadence needs io_ratio >= 2 and "
+                         "stack_frame_num == 1")
+    if k % io or cadence.sweep % io:
+        raise ValueError(f"chunk (start {cadence.sweep}, length {k}) not "
+                         f"aligned to io_ratio {io}")
+
+
 def run_chunk(state: EngineState, raws: scan_mod.RawSweep, cfg: LoamConfig,
               cadence: Cadence = Cadence(),
               imu_windows: Optional[imu_ops.ImuWindow] = None,
@@ -243,16 +258,14 @@ def run_chunk(state: EngineState, raws: scan_mod.RawSweep, cfg: LoamConfig,
     K. static_cadence=True: mapping on sweeps with index % io_ratio == 1
     and the static GN schedules; the chunk must start on an io_ratio
     boundary, with io_ratio >= 2 and stack_frame_num == 1. Otherwise a
-    loop of ``step(mapping_mode="auto")`` with the dynamic schedules."""
+    loop of ``step(mapping_mode="auto")`` with the dynamic schedules.
+    This is the eager chunk, operation by operation: on the card
+    ``Engine.run_chunk`` replays it as CUDA graphs (``models/graph.py``),
+    and this function stays the plain reference they are held to."""
     io = cfg.odometry.io_ratio
     k = raws.xyz.shape[0]
     if static_cadence:
-        if io < 2 or cfg.mapping.stack_frame_num != 1:
-            raise ValueError("static cadence needs io_ratio >= 2 and "
-                             "stack_frame_num == 1")
-        if k % io or cadence.sweep % io:
-            raise ValueError(f"chunk (start {cadence.sweep}, length {k}) not "
-                             f"aligned to io_ratio {io}")
+        check_static_chunk(cfg, k, cadence)
     outs = []
     for i in range(k):
         raw = scan_mod.RawSweep(xyz=raws.xyz[i], mask=raws.mask[i])
@@ -266,6 +279,16 @@ def run_chunk(state: EngineState, raws: scan_mod.RawSweep, cfg: LoamConfig,
         cadence = cadence.advance(cfg)
         outs.append(o)
     return state, _stack(outs)
+
+
+def static_group(cfg: LoamConfig, cadence: Cadence):
+    """One group of io_ratio sweeps of the static chunk from ``cadence``,
+    eager: ``fn(state, xyz, mask, imu_windows) -> (state, outputs)``
+    (what ``Engine.graphs`` captures)."""
+    def group(state, xyz, mask, wins):
+        return run_chunk(state, scan_mod.RawSweep(xyz, mask), cfg, cadence,
+                         wins, static_cadence=True)
+    return group
 
 
 def registered_cloud(state: EngineState, raw: scan_mod.RawSweep,
@@ -291,7 +314,10 @@ def registered_cloud(state: EngineState, raw: scan_mod.RawSweep,
 class Engine:
     """A run on one device: the engine state and the host's copy of its
     cadence counters. ``device`` is the card unless the caller asks for
-    the CPU."""
+    the CPU. On the card the static chunk runs as CUDA graphs of one
+    group of io_ratio sweeps (``graphs``, a ``models/graph.py``
+    ``ChunkGraphs`` captured on first use per key), as the JAX driver
+    runs its jitted chunk; on the CPU it runs eagerly."""
 
     def __init__(self, cfg: LoamConfig, device="cuda",
                  state: EngineState | None = None):
@@ -301,6 +327,8 @@ class Engine:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = require_device(device)
+        self.graphs = graph_mod.ChunkGraphs(
+            cfg, functools.partial(static_group, cfg))
         if state is None:
             self.state, self.cadence = EngineState.create(cfg, self.device), Cadence()
         else:
@@ -331,9 +359,17 @@ class Engine:
     def run_chunk(self, xyz: Tensor, mask: Tensor,
                   imu_windows: Optional[imu_ops.ImuWindow] = None,
                   static_cadence: bool = True) -> EngineOutputs:
-        """Process a (K, N, 3) / (K, N) chunk of raw sweeps."""
-        self.state, outs = run_chunk(self.state, self._raws(xyz, mask), self.cfg,
-                                     self.cadence, imu_windows, static_cadence)
+        """Process a (K, N, 3) / (K, N) chunk of raw sweeps. The static
+        cadence runs through the CUDA graphs on the card."""
+        raws = self._raws(xyz, mask)
+        if static_cadence and self.device.type == "cuda":
+            check_static_chunk(self.cfg, xyz.shape[0], self.cadence)
+            self.state, outs = self.graphs(self.state, raws.xyz, raws.mask,
+                                           imu_windows, self.cadence)
+        else:
+            self.state, outs = run_chunk(self.state, raws, self.cfg,
+                                         self.cadence, imu_windows,
+                                         static_cadence)
         for _ in range(xyz.shape[0]):
             self.cadence = self.cadence.advance(self.cfg)
         return outs

@@ -118,11 +118,13 @@ class MappingOutputs(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _dims(m: MappingConfig, device) -> Tensor:
-    # Built by fills on the device: a small torch.tensor(list) would be a
-    # copy from pageable host memory, which waits for the stream.
-    d = torch.empty(3, dtype=torch.int32, device=device)
-    d[0], d[1], d[2] = m.grid_width, m.grid_height, m.grid_depth
-    return d
+    # Built by fills on the device: a small torch.tensor(list), or an
+    # element set from a Python int (d[0] = w), is a copy from pageable
+    # host memory, which waits for the stream and cannot be captured in
+    # a CUDA graph.
+    i = torch.arange(3, dtype=torch.int32, device=device)
+    d = torch.full((3,), m.grid_depth, dtype=torch.int32, device=device)
+    return d.masked_fill(i == 0, m.grid_width).masked_fill(i == 1, m.grid_height)
 
 
 def _i32(x: Tensor) -> Tensor:

@@ -31,6 +31,7 @@ from loam_velodyne_torch.ops.neighbors import (corner_correspondences_fused,
                                                surf_correspondences_fused)
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
+from loam_velodyne_torch.utils.linalg import jacobi_eigh
 
 Tensor = torch.Tensor
 
@@ -128,8 +129,16 @@ def solve_gn(a_rows: Tensor, b_vec: Tensor) -> Tuple[Tensor, Tensor]:
 
 def degeneracy_projector(ata: Tensor, threshold: float) -> Tuple[Tensor, Tensor]:
     """P = V diag(keep) V^T, zeroing eigendirections with eigenvalue
-    below threshold; also whether any direction was dropped."""
-    w, v = torch.linalg.eigh(ata)
+    below threshold; also whether any direction was dropped. The
+    eigendecomposition is ``utils/linalg.py::jacobi_eigh`` on every
+    device: ``torch.linalg.eigh`` reads its status back on the card,
+    which would stop the static chunk from being captured. It runs in
+    float64 and is rounded to float32: the eigenpairs of the float32
+    matrix rounded once (on the CPU bit-equal to LAPACK's float64
+    eigh), whatever the device, so the keep decisions near the
+    threshold do not depend on an algorithm's float32 rounding."""
+    w, v = jacobi_eigh(ata.double())
+    w, v = w.float(), v.float()
     keep = (w >= threshold).to(torch.float32)
     return (v * keep[None, :]) @ v.T, (keep < 0.5).any()
 

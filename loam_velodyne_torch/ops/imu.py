@@ -60,6 +60,12 @@ def _lerp_yaw(y0: Tensor, y1: Tensor, r: Tensor) -> Tensor:
     return y0 * (1.0 - r) + y1_adj * r
 
 
+def _rows(a: Tensor, idx: Tensor) -> Tensor:
+    """Rows ``idx`` (any shape) of ``a``: a gather on the device. Indexing
+    with a 0-d tensor (``a[idx]``) would read the index back to the host."""
+    return a.index_select(0, idx.reshape(-1)).reshape(idx.shape + a.shape[1:])
+
+
 def interpolate(win: ImuWindow, t: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Interpolated (rpy, velo, pos) at times t (...,): clamped to the
     first / last state outside the history, linear between the
@@ -69,8 +75,8 @@ def interpolate(win: ImuWindow, t: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     idx = torch.minimum(idx, last.long())
     prev = (idx - 1).clamp(min=0)
 
-    t_hi = win.t[idx]
-    t_lo = win.t[prev]
+    t_hi = _rows(win.t, idx)
+    t_lo = _rows(win.t, prev)
     direct = (idx == 0) | (t_hi < t) | (t_hi - t_lo <= 0)
     # The weight is on the EARLIER state.
     ratio = torch.where(direct, 0.0,
@@ -79,12 +85,13 @@ def interpolate(win: ImuWindow, t: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     def mix(a_hi, a_lo):
         return a_hi * (1.0 - ratio[..., None]) + a_lo * ratio[..., None]
 
-    rpy_hi, rpy_lo = win.rpy[idx], win.rpy[prev]
+    rpy_hi, rpy_lo = _rows(win.rpy, idx), _rows(win.rpy, prev)
     roll = rpy_hi[..., 0] * (1 - ratio) + rpy_lo[..., 0] * ratio
     pitch = rpy_hi[..., 1] * (1 - ratio) + rpy_lo[..., 1] * ratio
     yaw = _lerp_yaw(rpy_hi[..., 2], rpy_lo[..., 2], ratio)
     rpy = torch.stack([roll, pitch, yaw], dim=-1)
-    return rpy, mix(win.velo[idx], win.velo[prev]), mix(win.pos[idx], win.pos[prev])
+    return (rpy, mix(_rows(win.velo, idx), _rows(win.velo, prev)),
+            mix(_rows(win.pos, idx), _rows(win.pos, prev)))
 
 
 def has_data(win: ImuWindow) -> Tensor:

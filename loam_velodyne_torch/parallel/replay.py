@@ -20,6 +20,12 @@ read.
 The vmapped calls run with the vmap fallback switched off: an operation
 without a batching rule raises instead of running lane by lane.
 
+On the card ``make_batched_chunk``'s callable replays the vmapped group
+of io_ratio sweeps as CUDA graphs (``models/graph.py``), the
+counterpart of the JAX package's ``jax.jit(jax.vmap(chunk_one))``;
+``make_eager_batched_chunk`` is the same chunk op by op, the plain
+reference (the CPU runs it).
+
 There is no mesh: this runs the lanes on one device.
 """
 
@@ -34,6 +40,7 @@ from torch._C import _functorch
 
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import engine as engine_mod
+from loam_velodyne_torch.models import graph as graph_mod
 from loam_velodyne_torch.ops import imu as imu_ops
 from loam_velodyne_torch.ops.scan import RawSweep
 
@@ -85,6 +92,42 @@ def no_vmap_fallback():
         _functorch._set_vmap_fallback_enabled(was)
 
 
+def _check_imu(with_imu: bool, imu_windows) -> None:
+    if (imu_windows is not None) != with_imu:
+        raise ValueError(f"with_imu={with_imu}: IMU windows "
+                         f"{'missing' if with_imu else 'given'}")
+
+
+def _vmapped_chunk(cfg: LoamConfig, states, xyz, mask, imu_windows,
+                   cadence: Cadence):
+    """``engine.run_chunk(static_cadence=True)`` vmapped over the lanes,
+    with the vmap fallback off."""
+    def one(state, x, m, w):
+        return engine_mod.run_chunk(state, RawSweep(x, m), cfg, cadence, w,
+                                    static_cadence=True)
+
+    fn = torch.func.vmap(
+        one, in_dims=(0, 0, 0, None if imu_windows is None else 0))
+    with no_vmap_fallback():
+        return fn(states, xyz, mask, imu_windows)
+
+
+def make_eager_batched_chunk(cfg: LoamConfig, with_imu: bool = False):
+    """The batched chunk op by op (vmap over ``engine.run_chunk``): the
+    plain reference of ``make_batched_chunk``'s graphs, with the same
+    call; the CPU runs it."""
+
+    def chunk(states, raws: RawSweep, cadence: Optional[Cadence] = None,
+              imu_windows: Optional[imu_ops.ImuWindow] = None):
+        _check_imu(with_imu, imu_windows)
+        if cadence is None:
+            cadence = lanes_cadence(states)
+        return _vmapped_chunk(cfg, states, raws.xyz, raws.mask, imu_windows,
+                              cadence)
+
+    return chunk
+
+
 def make_batched_chunk(cfg: LoamConfig, with_imu: bool = False,
                        static_cadence: bool = True):
     """B sequences x K sweeps per call: vmap over the lanes of
@@ -97,29 +140,33 @@ def make_batched_chunk(cfg: LoamConfig, with_imu: bool = False,
     ``cadence`` is the lanes' common host cadence at the chunk start;
     None reads it from the states (one read) and checks that all lanes
     share it. The chunk must start on an io_ratio boundary. Only the
-    static cadence is supported (``static_cadence=False`` raises)."""
+    static cadence is supported (``static_cadence=False`` raises). On
+    the card the chunk runs as CUDA graphs of one vmapped group
+    (``chunk.graphs``, a ``models/graph.py`` ``ChunkGraphs``); on the
+    CPU it is ``make_eager_batched_chunk``'s."""
     if not static_cadence:
         raise ValueError(
             "the batched replay runs the static cadence only: the dynamic "
             "Gauss-Newton schedules leave their loops on a flag read from "
             "the device for each lane, which a vmapped function cannot read")
+    eager = make_eager_batched_chunk(cfg, with_imu)
 
-    def one(state, xyz, mask, wins, cadence):
-        return engine_mod.run_chunk(state, RawSweep(xyz, mask), cfg, cadence,
-                                    wins, static_cadence=True)
+    def group(cadence: Cadence):
+        return lambda s, x, m, w: _vmapped_chunk(cfg, s, x, m, w, cadence)
+
+    graphs = graph_mod.ChunkGraphs(cfg, group, sweep_axis=1)
 
     def chunk(states, raws: RawSweep, cadence: Optional[Cadence] = None,
               imu_windows: Optional[imu_ops.ImuWindow] = None):
-        if (imu_windows is not None) != with_imu:
-            raise ValueError(f"with_imu={with_imu}: imu_windows "
-                             f"{'missing' if with_imu else 'given'}")
+        if raws.xyz.device.type != "cuda":
+            return eager(states, raws, cadence, imu_windows)
+        _check_imu(with_imu, imu_windows)
         if cadence is None:
             cadence = lanes_cadence(states)
-        fn = torch.func.vmap(lambda s, x, m, w: one(s, x, m, w, cadence),
-                             in_dims=(0, 0, 0, 0 if with_imu else None))
-        with no_vmap_fallback():
-            return fn(states, raws.xyz, raws.mask, imu_windows)
+        engine_mod.check_static_chunk(cfg, raws.xyz.shape[1], cadence)
+        return graphs(states, raws.xyz, raws.mask, imu_windows, cadence)
 
+    chunk.graphs = graphs
     return chunk
 
 
@@ -137,9 +184,7 @@ def make_batched_step(cfg: LoamConfig, with_imu: bool = False):
 
     def step(states, raw: RawSweep, cadence: Optional[Cadence] = None,
              imu_window: Optional[imu_ops.ImuWindow] = None):
-        if (imu_window is not None) != with_imu:
-            raise ValueError(f"with_imu={with_imu}: imu_window "
-                             f"{'missing' if with_imu else 'given'}")
+        _check_imu(with_imu, imu_window)
         if cadence is None:
             cadence = lanes_cadence(states)
         mode = "on" if cadence.gate(cfg)[1] else "off"

@@ -5,12 +5,14 @@ capacities (as ``chip_smoke.py`` does) and measures, in one process:
 
 - stage times of one odometry-only sweep and one mapping sweep (ingest,
   features, odometry, mapping; host clock between device syncs);
-- one chunk of sweeps without the profiler (host clock, ms/sweep), then
-  the same chunk again from the same state under ``torch.profiler``:
-  kernel launches, host-device syncs, the summed duration of the
-  device's kernels and copies, their union on the device timeline (busy
-  time), and the busy share of the profiled and of the unprofiled wall
-  time; the profiled chunk's trace is written to
+- one chunk of sweeps through ``Engine.run_chunk`` (on the card the
+  CUDA graphs of ``models/graph.py``, captured in the warm-up chunk)
+  without the profiler (host clock, ms/sweep), then the same chunk
+  again from the same state under ``torch.profiler``: kernel launches
+  from the host, graph launches, host-device syncs, the summed duration
+  of the device's kernels and copies, their union on the device
+  timeline (busy time), and the busy share of the profiled and of the
+  unprofiled wall time; the profiled chunk's trace is written to
   ``build/profile_step/trace.json``;
 - one call of the odometry Jacobian (``vmap(grad)``) at 512 points.
 
@@ -18,10 +20,10 @@ With ``--lanes B`` it profiles the batched replay instead
 (``parallel/replay.py``: B identical lanes of the bench sequence, one
 chunk of warm-up, then the next LANE_SWEEPS sweeps, one odometry-only
 sweep and one mapping sweep, without and with the profiler): launches,
-syncs, device busy share, ms per batched sweep and the aggregate
-sweeps/s over all lanes; then the single stream on the same sweeps
-after the same warm-up, so that the two launch counts come from one
-process.
+syncs, device operations, device busy share, ms per batched sweep and
+the aggregate sweeps/s over all lanes; then the single stream on the
+same sweeps after the same warm-up, so that the two counts of device
+operations come from one process.
 
 Prints one JSON object as its last line of output.
 
@@ -145,6 +147,8 @@ def profile_calls(call, restore, dev: torch.device, n: int,
         "unprofiled_ms_per_sweep": 1e3 * plain_s / n,
         "profiled_ms_per_sweep": 1e3 * prof_s / n,
         "launches": sum(r.count for r in rows if r.key in _LAUNCH_APIS),
+        "graph_launches": sum(r.count for r in rows
+                              if r.key == "cudaGraphLaunch"),
         "syncs": {r.key: r.count for r in rows
                   if "Synchronize" in r.key or r.key.startswith("cudaMemcpy")},
         # Summing self device time over every row counts each kernel
@@ -228,7 +232,9 @@ def run_lanes(dev: torch.device, cfg: LoamConfig, cap: int, trace_dir: str,
     one = profile_chunk(engine, xyz[0, CHUNK:CHUNK + LANE_SWEEPS],
                         mask[0, CHUNK:CHUNK + LANE_SWEEPS],
                         os.path.join(trace_dir, "single"))
-    out["launch_ratio_to_single_stream"] = out["launches"] / one["launches"]
+    # Device operations (kernels and copies) run, graphed or not.
+    out["device_event_ratio_to_single_stream"] = (out["device_events"]
+                                                  / one["device_events"])
     return {"batched_chunk": out, "single_stream_same_sweeps": one}
 
 

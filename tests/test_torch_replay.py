@@ -23,32 +23,53 @@ Tolerances and why:
   integers and floats alike (the same plain operations per lane; the
   lane segment sums keep each segment's row order).
 - Determinism: two batched runs are bit-equal.
+
+The JAX side is committed, not compiled in tier-1: ``tests/replay_jax.npz``
+holds the JAX ``make_batched_chunk``'s packed outputs, (B, K, 29),
+without and with the IMU, and a SHA-256 of the input sweeps and windows
+that wrote them (the tests refuse a file whose hash does not match the
+inputs built here). It is written by
+
+    python tests/test_torch_replay.py regen
+
+(JAX on the CPU, a few minutes); the slow
+``test_committed_jax_reference_is_live`` recomputes it and holds the
+file to it within 1e-6 (the JAX CPU build may round otherwise than the
+build that wrote it).
 """
 
 import contextlib
 import dataclasses
+import hashlib
+import os
+import sys
 import warnings
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
+if __name__ == "__main__":            # python tests/test_torch_replay.py regen
+    sys.path[:0] = [os.path.dirname(os.path.abspath(__file__)),
+                    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    os.environ["JAX_PLATFORMS"] = "cpu"
 
-from loam_velodyne_tpu.io import synthetic
-from loam_velodyne_tpu.models import engine as jeng
-from loam_velodyne_tpu.ops.imu import ImuWindow as JWindow
-from loam_velodyne_tpu.ops.scan import RawSweep as JRaw
-from loam_velodyne_tpu.parallel import replay as jreplay
-from loam_velodyne_torch.models import engine as teng
-from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from loam_velodyne_tpu.io import synthetic  # noqa: E402
+from loam_velodyne_tpu.models import engine as jeng  # noqa: E402
+from loam_velodyne_tpu.ops.imu import ImuWindow as JWindow  # noqa: E402
+from loam_velodyne_tpu.ops.scan import RawSweep as JRaw  # noqa: E402
+from loam_velodyne_tpu.parallel import replay as jreplay  # noqa: E402
+from loam_velodyne_torch.models import engine as teng  # noqa: E402
+from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,  # noqa: E402
                                      grid_kernel, knn_kernel, voxel)
-from loam_velodyne_torch.ops.imu import ImuWindow as TWindow
-from loam_velodyne_torch.ops.scan import RawSweep as TRaw
-from loam_velodyne_torch.parallel import replay as treplay
-from test_torch_engine import _port, slice_config
-from test_torch_imu import trackers
+from loam_velodyne_torch.ops.imu import ImuWindow as TWindow  # noqa: E402
+from loam_velodyne_torch.ops.scan import RawSweep as TRaw  # noqa: E402
+from loam_velodyne_torch.parallel import replay as treplay  # noqa: E402
+from test_torch_engine import _port, slice_config  # noqa: E402
+from test_torch_imu import trackers  # noqa: E402
 
 B, K = 2, 8
 SPEEDS = (1.0, 0.6)
@@ -116,29 +137,79 @@ def _port_batched(cfg, xyz, mask, twin=None):
                      TRaw(_t(xyz), _t(mask)), imu_windows=wins)
 
 
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "replay_jax.npz")
+
+
+def input_hash(xyz, mask, jwin) -> str:
+    """SHA-256 of the input sweeps and the JAX windows (dtype, shape and
+    bytes of each array, in order)."""
+    h = hashlib.sha256()
+    for a in (xyz, mask, *jwin):
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def jax_packed(cfg, xyz, mask, jwin, imu: bool) -> np.ndarray:
+    """The JAX batched chunk's packed outputs (B, K, 29) from fresh states."""
+    run = jreplay.make_batched_chunk(cfg, donate=False, with_imu=imu)
+    states = jreplay.stack_states([jeng.EngineState.create(cfg)
+                                   for _ in range(B)])
+    args = (states, JRaw(jnp.asarray(xyz), jnp.asarray(mask)))
+    if imu:
+        args += (JWindow(*map(jnp.asarray, jwin)),)
+    _, outs = run(*args)
+    return np.asarray(jax.device_get(outs.packed))
+
+
+def committed_reference(xyz, mask, jwin) -> dict:
+    """The committed JAX outputs by ``imu``; refuses a file written from
+    other inputs."""
+    with np.load(REFERENCE) as z:
+        ref = {k: z[k] for k in z.files}
+    got = input_hash(xyz, mask, jwin)
+    if str(ref["input_sha256"]) != got:
+        raise AssertionError(
+            f"{REFERENCE} was written from other inputs (sha256 "
+            f"{ref['input_sha256']}, inputs now {got}): run "
+            f"python tests/test_torch_replay.py regen")
+    return {False: ref["packed_no_imu"], True: ref["packed_imu"]}
+
+
 @pytest.fixture(scope="module")
 def runs(inputs):
-    """The JAX batched chunk and the port's, without and with the IMU."""
+    """The JAX batched chunk's packed outputs (committed) and the port's
+    run (live), without and with the IMU."""
     cfg, xyz, mask = inputs
     jwin, twin = _windows()
+    ref = committed_reference(xyz, mask, jwin)
     out = {}
     for imu in (False, True):
-        run = jreplay.make_batched_chunk(cfg, donate=False, with_imu=imu)
-        states = jreplay.stack_states([jeng.EngineState.create(cfg)
-                                       for _ in range(B)])
-        args = (states, JRaw(jnp.asarray(xyz), jnp.asarray(mask)))
-        if imu:
-            args += (JWindow(*map(jnp.asarray, jwin)),)
-        _, outs_j = run(*args)
         state_t, outs_t = _port_batched(cfg, xyz, mask, twin if imu else None)
-        out[imu] = (jax.device_get(outs_j), outs_t, state_t)
+        out[imu] = (ref[imu], outs_t, state_t)
     return out
+
+
+@pytest.mark.slow
+def test_committed_jax_reference_is_live(inputs):
+    """The JAX batched chunk recomputed on this build equals the
+    committed file within 1e-6."""
+    cfg, xyz, mask = inputs
+    jwin = _windows()[0]
+    ref = committed_reference(xyz, mask, jwin)
+    for imu in (False, True):
+        got = jax_packed(cfg, xyz, mask, jwin, imu)
+        assert got.shape == ref[imu].shape == (B, K, 29)
+        np.testing.assert_allclose(got, ref[imu], rtol=0, atol=1e-6,
+                                   err_msg=f"imu={imu}")
 
 
 @pytest.mark.parametrize("imu", [False, True], ids=["no_imu", "imu"])
 def test_batched_chunk_matches_jax_lane_by_lane(runs, imu):
-    outs_j, outs_t, _ = runs[imu]
-    pj, pt = np.asarray(outs_j.packed), outs_t.packed.numpy()
+    pj, outs_t, _ = runs[imu]
+    pt = outs_t.packed.numpy()
     assert pt.shape == pj.shape == (B, K, 29)
     tol = 1e-3 if imu else 1e-4
     for i in range(B):
@@ -385,3 +456,21 @@ def test_lane_split_rehearsal_on_the_cpu(inputs):
             "fit.plane_fit"} <= calls
     for e in sp["trace"]:
         assert e["replay"]["int"] == 0 and e["replay"]["float"] <= 1e-6, e
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["regen"]:
+        raise SystemExit("usage: python tests/test_torch_replay.py regen")
+    jax.config.update("jax_platforms", "cpu")
+    cfg = slice_config()
+    lanes = [_lane_sweeps(cfg, s) for s in SPEEDS]
+    xyz = np.stack([a[0] for a in lanes])
+    mask = np.stack([a[1] for a in lanes])
+    jwin = _windows()[0]
+    arrays = {f"packed_{'imu' if imu else 'no_imu'}":
+              jax_packed(cfg, xyz, mask, jwin, imu) for imu in (False, True)}
+    np.savez_compressed(REFERENCE, input_sha256=np.array(
+        input_hash(xyz, mask, jwin)), **arrays)
+    print(f"wrote {REFERENCE}: " + "; ".join(
+        f"{k} {v.shape}, telemetry {v[:, :, 20:28].sum():.0f}"
+        for k, v in arrays.items()))
