@@ -89,6 +89,21 @@ recorders see every kernel call, and holds each call to its plain twin
 there; the multi-process workers run the graphs, held bit-equal to
 this process's eager lanes.
 
+Then the per-sweep graphs (``run_sweep_graphs``,
+``models/engine.py::step_graphed``): the dynamic per-sweep step
+replayed as CUDA graphs of its segments and GN phases, one stop flag
+read before each phase, under ``LoamDriver.run_live`` on the per-sweep
+phase's 24 bench sweeps: with that phase's IMU input against its eager
+live run, and without the IMU against an eager run of the same sweeps,
+every packed column bit-equal and the launches equal, no key captured
+inside a run (a throwaway driver's first two sweeps capture them). It
+prints each run's sweeps/s and p50 / max beside the eager run's, the
+stop-flag reads a sweep, and each graph's set-up, nodes and pool
+bytes. The per-sweep, entry-point, trajectory-gate, oracle and bench
+phases step the eager path (``device_split.eager_steps``): on the card
+``Engine.step`` replays these graphs, which run without Python, and
+those phases count or record the kernel calls.
+
 Then three phases. The multi-process replay (``run_multiprocess``,
 ``parallel/multihost.py`` through ``tools/dryrun_dcn.py``): two fresh
 processes share the card over gloo, two lanes each, and gather all four
@@ -118,11 +133,12 @@ is ``{"ok": true, "device": {...}}``; the line before it is the card's
 ``name, power.limit``, and before that one JSON object with each
 kernel's launches, error, times and bound, the heaviest main-path case
 at the top level and every case under ``cases``, its launches on the
-per-sweep path under ``per_sweep_path``, on the entry points under
+per-sweep path under ``per_sweep_path``, on the per-sweep graphs
+under ``per_sweep_graphs``, on the entry points under
 ``entry_points`` and on the HDL-64E run under ``hdl64e``, the launch
 floor, and the phases' numbers under ``per_sweep``, ``entry_points``,
-``trajectory_gates``, ``batched``, ``multiprocess``, ``sized``,
-``oracle`` and ``bench``; every row has its launches and calls in the
+``trajectory_gates``, ``batched``, ``graph``, ``sweep_graphs``,
+``multiprocess``, ``sized``, ``oracle`` and ``bench``; every row has its launches and calls in the
 bench phase under ``bench``; a lane form's row has its launches over
 the batched phase, its engine calls under ``batched_calls`` and each
 worker's launches
@@ -154,6 +170,7 @@ from loam_velodyne_torch.io import kitti, native, pcap, rosbag, synthetic
 from loam_velodyne_torch.io.driver import LoamDriver
 from loam_velodyne_torch.io.live import LiveFeeder
 from loam_velodyne_torch.models import engine as engine_mod
+from loam_velodyne_torch.models import graph as graph_mod
 from loam_velodyne_torch.models.engine import Engine, sync
 from loam_velodyne_torch.models.engine import card as engine_card
 from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
@@ -1036,6 +1053,125 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
     return {"single": single_launches, "batched": batched_launches}, out
 
 
+def _sweep_graph_stats(graphs, card: str) -> list:
+    """Each per-sweep graph's key, warm-up, capture and instantiation
+    seconds, nodes, the shared pool's bytes after it and launches a
+    replay, printed."""
+    rows = []
+    for key, st in graphs.stats.items():
+        rows.append({"key": [str(k) for k in key], **st._asdict()})
+        print(f"sweep graph {key[0]} {list(key[1:])}: warm-up "
+              f"{st.warmup_s:.2f} s, capture {st.capture_s:.2f} s, "
+              f"instantiation {st.instantiate_s:.2f} s, {st.nodes} nodes, the "
+              f"shared pool {st.pool_bytes / 2**20:.1f} MiB after it; launches "
+              f"a replay {json.dumps(st.launches)}; card: {card}", flush=True)
+    return rows
+
+
+def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
+                     mask: np.ndarray, live_ref: tuple) -> tuple[dict, dict]:
+    """The per-sweep graphs (``models/engine.py::step_graphed`` through
+    ``graph.SweepGraphs``) under ``LoamDriver.run_live``, the entry point
+    a user calls, on the per-sweep phase's LIVE_SWEEPS bench sweeps at
+    full VLP-16 width. (1) A throwaway driver steps sweeps 0 and 1 with
+    and without the IMU: it captures every key the runs below replay
+    (the set-up, timed apart). (2) With the per-sweep phase's IMU input,
+    graphed, against that phase's eager live run (``live_ref``: its
+    packed rows, launches and latencies). (3) Without the IMU, eagerly
+    (``device_split.eager_steps``, the plain reference), then graphed.
+    Each graphed run: every packed column bit-equal to the eager one,
+    the same launches (counted from 0 over the run), no key captured.
+    Prints each run's sweeps/s, p50 / max beside the eager run's, the
+    stop-flag reads a sweep, and each graph's set-up, nodes and pool
+    bytes. Returns the graphed runs' launches by run and the phase's
+    numbers."""
+    t_phase = time.perf_counter()
+    sweeps = [xyz[i][mask[i]] for i in range(LIVE_SWEEPS)]
+    stamps = [0.1 * k for k in range(LIVE_SWEEPS)]
+    cap = xyz.shape[1]
+    graphs = graph_mod.sweep_graphs(cfg, dev)
+    failures = []
+
+    # (1) The set-up.
+    sync(dev)
+    t0 = time.perf_counter()
+    for drv, st in ((LoamDriver(cfg, dev, sweep_capacity=cap, system_delay=0),
+                     [None, None]), (_imu_driver(cfg, dev, cap), stamps)):
+        for pts, stamp in zip(sweeps[:2], st):
+            drv.process_sweep(pts, stamp)
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    keys = set(graphs.stats)
+    stats = _sweep_graph_stats(graphs, card)
+    nodes = sum(st["nodes"] or 0 for st in stats)
+    pool = graph_mod.pool_bytes(dev)
+    print(f"sweep graphs: {len(keys)} keys captured in {setup_s:.1f} s (two "
+          f"sweeps with and two without the IMU, their steps included), "
+          f"{nodes} nodes in all, the shared pool {pool / 2**20:.1f} MiB; "
+          f"card: {card}", flush=True)
+
+    # (3)'s eager reference, without the IMU.
+    with device_split.eager_steps():
+        drv = LoamDriver(cfg, dev, sweep_capacity=cap, system_delay=0)
+        rows = _keep_rows(drv)
+        sync(dev)
+        _zero_launches()
+        lat = drv.run_live(sweeps)
+        sync(dev)
+        eager = (np.concatenate(rows), _read_launches(), [1e3 * x for x in lat])
+
+    runs, launches = {}, {}
+    for name, drv, st, ref in (
+            ("imu", _imu_driver(cfg, dev, cap), stamps, live_ref),
+            ("no_imu", LoamDriver(cfg, dev, sweep_capacity=cap, system_delay=0),
+             None, eager)):
+        rows = _keep_rows(drv)
+        sync(dev)
+        _zero_launches()
+        reads0, replays0 = graphs.flag_reads, graphs.replays
+        lat = [1e3 * x for x in drv.run_live(sweeps, st)]
+        sync(dev)
+        launches[name] = _read_launches()
+        rows = np.concatenate(rows)
+        differ = [int(c) for c in np.nonzero((rows != ref[0]).any(axis=0))[0]]
+        n = len(sweeps)
+        ms, ms_eager = sorted(lat), sorted(ref[2])
+        run = {"columns_differing": differ, "launches": launches[name],
+               "eager_launches": ref[1],
+               "sweeps_per_sec": 1e3 * n / sum(lat),
+               "eager_sweeps_per_sec": 1e3 * n / sum(ref[2]),
+               "p50_ms": ms[n // 2], "max_ms": ms[-1],
+               "eager_p50_ms": ms_eager[n // 2], "eager_max_ms": ms_eager[-1],
+               "flag_reads_per_sweep": (graphs.flag_reads - reads0) / n,
+               "replays_per_sweep": (graphs.replays - replays0) / n,
+               "live_ms": lat}
+        runs[name] = run
+        print(f"sweep graphs, run_live {'with' if name == 'imu' else 'without'} "
+              f"the IMU, {n} sweeps: columns differing from the eager run "
+              f"{differ} (of 29); launches {json.dumps(launches[name])} (eager "
+              f"{json.dumps(ref[1])}); {run['sweeps_per_sec']:.3f} sweeps/s "
+              f"graphed against {run['eager_sweeps_per_sec']:.3f} eager "
+              f"({run['sweeps_per_sec'] / run['eager_sweeps_per_sec']:.2f}x); "
+              f"p50 {run['p50_ms']:.1f} ms, max {run['max_ms']:.1f} ms (eager "
+              f"{run['eager_p50_ms']:.1f} / {run['eager_max_ms']:.1f} ms); "
+              f"{run['flag_reads_per_sweep']:.2f} stop-flag reads and "
+              f"{run['replays_per_sweep']:.2f} graph replays a sweep, one "
+              f"packed row read back; card: {card}", flush=True)
+        if differ or launches[name] != ref[1] or not all(ref[1].values()):
+            failures.append(f"{name}: columns {differ} differ, launches "
+                            f"{launches[name]} against {ref[1]}")
+    if set(graphs.stats) != keys:
+        failures.append(f"captured inside the runs: {set(graphs.stats) - keys}")
+    out = {"setup_s": setup_s, "keys": len(keys), "nodes": nodes,
+           "pool_bytes": pool, "graphs": stats, "runs": runs,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"sweep graphs: the phase took {out['seconds']:.1f} s; card: {card}",
+          flush=True)
+    if failures:
+        raise AssertionError("sweep graph phase: " + "; ".join(failures))
+    return launches, out
+
+
 def run_trajectory_gates(dev, replay_packed: np.ndarray) -> dict:
     """The card against the committed references: the port's driver on
     the golden's input (tests/golden_trajectory.npz, the JAX driver's
@@ -1082,6 +1218,19 @@ def run_trajectory_gates(dev, replay_packed: np.ndarray) -> dict:
     return out
 
 
+def _keep_rows(drv: LoamDriver) -> list:
+    """A list that collects, in order, every packed row the driver
+    consumes from now on."""
+    rows, consume = [], drv._consume_packed
+
+    def kept(p):
+        rows.append(np.atleast_2d(np.asarray(p)).copy())
+        consume(p)
+
+    drv._consume_packed = kept
+    return rows
+
+
 def _imu_driver(cfg, dev, cap: int, **kw) -> LoamDriver:
     """The live run's driver, as tools/device_split.py builds it."""
     return device_split.imu_driver(cfg, dev, LIVE_SWEEPS, sweep_capacity=cap,
@@ -1090,12 +1239,12 @@ def _imu_driver(cfg, dev, cap: int, **kw) -> LoamDriver:
 
 def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
                   mask: np.ndarray, gt: np.ndarray,
-                  replay_packed: np.ndarray) -> tuple[dict, dict]:
+                  replay_packed: np.ndarray) -> tuple[dict, tuple, dict]:
     """The per-sweep path on the sequence (xyz, mask, gt) of at least
     LIVE_SWEEPS sweeps: LoamDriver against the replay's packed rows, the
     live loop with the IMU and an auto-checkpoint, and a resume from it.
-    Returns the kernels' launch counts on this path and the phase's
-    numbers."""
+    Returns the kernels' launch counts on this path, the live run's
+    packed rows, launches and latencies (ms), and the phase's numbers."""
     sweeps = [xyz[i][mask[i]] for i in range(LIVE_SWEEPS)]
     gt = gt[:LIVE_SWEEPS]
     stamps = [0.1 * k for k in range(LIVE_SWEEPS)]
@@ -1124,8 +1273,11 @@ def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
     ckpt = os.path.join(ckpt_dir, "state.npz")
     live = _imu_driver(cfg, dev, xyz.shape[1], checkpoint_path=ckpt,
                        checkpoint_every=CKPT_EVERY)
+    live_rows = _keep_rows(live)
+    before = _read_launches()
     lat = live.run_live(sweeps, stamps)
     sync(dev)
+    live_launches = {k: v - before[k] for k, v in _read_launches().items()}
     poses = np.concatenate([np.stack(live.odom_trajectory),
                             np.stack(live.mapped_trajectory),
                             np.stack(live.trajectory)], axis=1)
@@ -1204,7 +1356,8 @@ def run_per_sweep(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
           f"({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
     if not cpu_dev.max() <= IMU_TOL:
         raise AssertionError(f"IMU run against the CPU: {cpu_dev.max()} > {IMU_TOL}")
-    return launches, {
+    return launches, (np.concatenate(live_rows), live_launches,
+                      [1e3 * x for x in lat]), {
         "sweeps": n, "dynamic_vs_static_max_dev": dyn_dev,
         "live_ate_m": ate, "live_p50_ms": ms[len(ms) // 2], "live_max_ms": ms[-1],
         "live_slowest_sweep": slowest,
@@ -1784,8 +1937,9 @@ def run_bench(dev, card: str) -> tuple[dict, dict]:
     single-lane (the single stream and the live driver) and as a lane
     form at B = BENCH_LANES (the identical and distinct batched
     replays), K1 and K2 exactly once and twice a sweep of each of the
-    four runs, K3 and K4 at B = BENCH_LANES as the static cadence
-    implies. Every lane-form call of the run (single-lane calls are the
+    four runs and of the live driver's warm-up sweeps
+    (``bench.LIVE_WARM_SWEEPS``), K3 and K4 at B = BENCH_LANES as the
+    static cadence implies. Every lane-form call of the run (single-lane calls are the
     lane form at B = 1) is recorded and held bit-equal to its plain twin
     afterwards (``batched_calls``), so the sized shapes the bench reads
     its rates from are checked at both lane counts. The recording clones
@@ -1831,7 +1985,10 @@ def run_bench(dev, card: str) -> tuple[dict, dict]:
     if not extra["ate_aligned_m"] <= ATE_GATE_M or any(extra["telemetry"].values()):
         failures.append(f"ATE {extra['ate_aligned_m']}, telemetry "
                         f"{extra['telemetry']}")
-    expected_single = {"grid_windows": 2 * n, "greedy_pick_rows": 4 * n}
+    # The single stream's and the live line's sweeps, and the live line's
+    # warm-up sweeps (its throwaway driver).
+    single = 2 * n + port_bench.LIVE_WARM_SWEEPS
+    expected_single = {"grid_windows": single, "greedy_pick_rows": 2 * single}
     if lane_calls != expected_lane or any(
             single_calls[k] != v for k, v in expected_single.items()):
         failures.append(f"calls at B = {BENCH_LANES} {lane_calls} (expected "
@@ -1869,8 +2026,11 @@ def main() -> int:
     launches, greedy_calls, replay_packed, chunk_ms, rate = run_engine(dev, card)
     cfg = LoamConfig.preset("VLP-16")
     seq = synthetic.bench_sequence(LIVE_SWEEPS, cfg.lidar, SWEEP_CAP)
-    per_sweep_launches, per_sweep = run_per_sweep(dev, card, cfg, *seq,
-                                                  replay_packed)
+    # The phases that count or record kernel calls step the eager path:
+    # on the card Engine.step replays graphs, which run without Python.
+    with device_split.eager_steps():
+        per_sweep_launches, live_ref, per_sweep = run_per_sweep(
+            dev, card, cfg, *seq, replay_packed)
     # Like with like: the mean over the same sweeps, after the first chunk.
     live_mean = float(np.mean(per_sweep["live_ms"][CHUNK:]))
     replay_mean = float(np.mean(chunk_ms[1:LIVE_SWEEPS // CHUNK]))
@@ -1879,17 +2039,21 @@ def main() -> int:
           f"{replay_mean:.2f} ms a sweep", flush=True)
     per_sweep.update(live_mean_ms_after_first_chunk=live_mean,
                      replay_mean_ms_same_sweeps=replay_mean)
-    entry_launches, entry = run_entry_points(dev, card)
-    gates = run_trajectory_gates(dev, replay_packed)
+    with device_split.eager_steps():
+        entry_launches, entry = run_entry_points(dev, card)
+        gates = run_trajectory_gates(dev, replay_packed)
     batched, distinct = run_batched(dev, card, replay_packed, chunk_ms)
     graph_launches, graph = run_graph(dev, card, replay_packed, chunk_ms,
                                       distinct, batched["sweeps_per_sec"])
+    sweep_graph_launches, sweep_graph = run_sweep_graphs(
+        dev, card, cfg, seq[0], seq[1], live_ref)
     multi = run_multiprocess(dev, card)
     sized_launches, sized_out = run_sized(dev, card, sized, chunk_ms)
-    oracle_launches, oracle = run_oracle(dev, card)
-    print(f"before the bench phase: {time.perf_counter() - t0:.1f} s since "
-          f"the build began", flush=True)
-    bench_launches, bench_out = run_bench(dev, card)
+    with device_split.eager_steps():
+        oracle_launches, oracle = run_oracle(dev, card)
+        print(f"before the bench phase: {time.perf_counter() - t0:.1f} s "
+              f"since the build began", flush=True)
+        bench_launches, bench_out = run_bench(dev, card)
     for row in kernels:
         kernel = row["name"].removesuffix("_lanes")
         row["bench"] = {"launches": bench_launches[kernel],
@@ -1919,6 +2083,10 @@ def main() -> int:
             "launches_per_sweep": per_sweep_launches[row["name"]]
             / per_sweep["sweeps"]}
         row["entry_points"] = {"launches": entry_launches[row["name"]]}
+        row["per_sweep_graphs"] = {
+            run: {"launches": v[row["name"]],
+                  "launches_per_sweep": v[row["name"]] / LIVE_SWEEPS}
+            for run, v in sweep_graph_launches.items()}
         row["hdl64e"] = {
             "launches_per_sweep": entry["hdl64e"]["launches"][row["name"]]
             / HDL_SWEEPS,
@@ -1929,7 +2097,7 @@ def main() -> int:
                       "trajectory_gates": gates,
                       "batched": {k: v for k, v in batched.items()
                                   if k != "calls"},
-                      "graph": graph,
+                      "graph": graph, "sweep_graphs": sweep_graph,
                       "multiprocess": multi,
                       "sized": {k: v for k, v in sized_out.items()
                                 if k != "engine_calls"},

@@ -24,7 +24,10 @@ with the static shapes sized to the stream (``config.stream_cap`` and
 
 Rates are read over the chunks after the first (the warm-up): the whole
 stream is dispatched, then one ``torch.cuda.synchronize()`` stops the
-clock. Every line's ``vs_baseline`` is its rate over the reference's
+clock. On the card the single stream and the live line replay the
+per-sweep graphs (``models/engine.py::step_graphed``), the batched
+replay the chunk's (``models/graph.py::ChunkGraphs``); the warm-ups
+capture them, so no capture falls inside a timed window. Every line's ``vs_baseline`` is its rate over the reference's
 real time, 10 sweeps/s (BASELINE.md). ``extra.device`` names the card
 and its power limit as ``nvidia-smi`` prints them. The full run writes
 ``{"ts", "lines"}`` to ``--out`` (``build/bench_torch/latest.json``);
@@ -62,6 +65,9 @@ OUT = os.path.join(REPO, "build", "bench_torch", "latest.json")
 CAP = 32768
 CHUNK = 8
 REAL_TIME = 10.0            # sweeps/s of the reference in real time
+# Sweeps that reach every per-sweep graph key of a run without an IMU:
+# odometry's first sweep, then a mapping sweep.
+LIVE_WARM_SWEEPS = 2
 
 
 def require_timed_chunk(n_sweeps: int, chunk: int = CHUNK) -> None:
@@ -179,10 +185,17 @@ def bench_live_latency(cfg: LoamConfig, sweeps: list, n: int | None = None,
                        cap: int = CAP, device="cuda"):
     """Per-sweep latency of ``LoamDriver.run_live`` (pipelined one sweep
     deep) over sweeps 1..n after a warm-up sweep and a warm surround-map
-    build: returns (p50 ms, max ms, attribution). The attribution splits
+    build, the graphs captured beforehand by a throwaway driver's first
+    LIVE_WARM_SWEEPS sweeps: returns (p50 ms, max ms, attribution). The attribution splits
     the slowest sweep into the driver's segments (dispatch, stage,
     consume) and cadence events (surround map, archive compaction)."""
     n = len(sweeps) if n is None else n
+    # A throwaway driver's first sweeps capture every per-sweep graph the
+    # run replays (the engines of a configuration share them on the
+    # card), so that no capture falls inside the timed sweeps.
+    warm = LoamDriver(cfg, device, sweep_capacity=cap, system_delay=0)
+    for pts in sweeps[:LIVE_WARM_SWEEPS]:
+        warm.process_sweep(pts)
     drv = LoamDriver(cfg, device, sweep_capacity=cap, system_delay=0)
     drv.process_sweep(sweeps[0])
     # Warm the surround map too: run_live builds it on its cadence, and

@@ -9,13 +9,18 @@ archive compaction at 3/4 of the pool, checkpoints (explicit and every
 N sweeps) with resume, the chunked throughput mode, the pipelined live
 loop, the rosbag replay (``run_bag``) and the TUM export. It drives
 ``models/engine.py::Engine`` on the per-sweep path
-(``mapping_mode="auto"``, the dynamic GN schedules).
+(``mapping_mode="auto"``, the dynamic GN schedules), which on the card
+replays the per-sweep CUDA graphs (``Engine.step``, ``run_chunk`` with
+the dynamic cadence). What the driver writes to ``engine.state`` (the
+archive compaction, a loaded checkpoint) is the next sweep's input: each
+graphed sweep copies the state in.
 
 The live loop pipelines one sweep deep: it dispatches sweep N, copies
 its packed row into pinned host memory behind a CUDA event, stages
 sweep N+1 (pad, host-to-device copy, IMU window) and only then waits
 for sweep N-1's row. That wait is its one synchronization per sweep
-(the dynamic GN reads its stop flags inside the step).
+besides the step's own: the GNs' stop-flag reads, one a refresh phase,
+inside the dispatch.
 """
 
 from __future__ import annotations

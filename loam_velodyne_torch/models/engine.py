@@ -12,8 +12,13 @@ so the state matches the JAX layout and checkpoints load both ways.
 ``step(mapping_mode="auto")`` is the per-sweep path (the cadence gate,
 the dynamic GN schedules, an optional IMU window); "on" / "off" are the
 static cadence that ``run_chunk(static_cadence=True)`` schedules.
-``registered_cloud`` is the full-resolution sweep in the map frame.
-``Engine`` holds the device, the state and the host cadence.
+``step_graphed`` is the per-sweep path through CUDA graphs of the same
+segments (``front``, odometry's, mapping's, ``close``), each GN as its
+refresh phases with one stop flag read a phase: the counterpart of the
+JAX driver's jitted step over ``lax.while_loop``; the eager ``step``
+stays the plain reference it is held to. ``registered_cloud`` is the
+full-resolution sweep in the map frame. ``Engine`` holds the device,
+the state and the host cadence.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
 from loam_velodyne_torch.ops import imu as imu_ops
 from loam_velodyne_torch.ops import scan as scan_mod
-from loam_velodyne_torch.ops.features import extract_features
+from loam_velodyne_torch.ops.features import SweepFeatures, extract_features
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
 
@@ -161,45 +166,44 @@ class Cadence(NamedTuple):
         return Cadence(sweep, inputs, bool(init))
 
 
-def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
-         mapping_mode: str = "auto", cadence: Cadence = Cadence(),
-         imu_window: Optional[imu_ops.ImuWindow] = None,
-         static_schedule: bool = False
-         ) -> Tuple[EngineState, EngineOutputs]:
-    """Process one sweep. ``cadence``: the host's copy of the state's
-    counters. ``mapping_mode`` "auto" runs mapping on the cadence gate
-    (``Cadence.gate``); "on" / "off" are a cadence the caller scheduled
-    ("on" requires an initialized odometry). ``imu_window``: IMU states
-    with times relative to this sweep's start. ``static_schedule``: the
-    fixed-phase GN schedules in odometry and mapping instead of the
-    dynamic ones. It mirrors the JAX package's ``step`` argument; the
-    port's callers pair it with the mode (True with "on" / "off" from
-    ``run_chunk(static_cadence=True)``, False with "auto")."""
-    if mapping_mode not in ("auto", "on", "off"):
-        raise ValueError(f"mapping_mode must be 'auto', 'on' or 'off', "
-                         f"got {mapping_mode!r}")
-    if mapping_mode == "on" and not cadence.initialized:
-        raise ValueError("mapping cannot run on the first sweep")
-    dev = raw.xyz.device
+class Front(NamedTuple):
+    """What the front of a sweep hands on: its features, the IMU sweep
+    state, the IMU's attitude at the sweep end with whether the window
+    had data (zero and False without IMU windows), and the ingest's
+    drop count."""
+
+    feats: SweepFeatures
+    imu: odometry_mod.ImuSweepState
+    imu_rpy: Tuple[Tensor, Tensor]
+    ingest_dropped: Tensor
+
+
+def front(raw: scan_mod.RawSweep, imu_window: Optional[imu_ops.ImuWindow],
+          cfg: LoamConfig) -> Front:
+    """Ingest (K1) and features (K2), and the IMU window's summaries."""
     grid, _ = scan_mod.ingest_sweep(raw, cfg.lidar, cfg.registration, imu_window)
     feats = extract_features(grid, cfg.registration, cfg.capacities)
-    if imu_window is not None:
-        imu_state = imu_ops.sweep_state(imu_window, cfg.registration.scan_period)
-        imu_rpy = imu_ops.end_attitude(imu_window, cfg.registration.scan_period)
-    else:
-        imu_state = imu_rpy = None
-    ostate, oouts = odometry_mod.step(state.odometry, feats, cfg,
-                                      cadence.initialized, imu_state,
-                                      static_schedule=static_schedule)
+    if imu_window is None:
+        dev = raw.xyz.device
+        return Front(feats, odometry_mod.ImuSweepState.zero(dev),
+                     (torch.zeros((3,), dtype=torch.float32, device=dev),
+                      torch.zeros((), dtype=torch.bool, device=dev)),
+                     grid.dropped)
+    period = cfg.registration.scan_period
+    return Front(feats, imu_ops.sweep_state(imu_window, period),
+                 imu_ops.end_attitude(imu_window, period), grid.dropped)
 
-    mapping_input, due = cadence.gate(cfg)
-    if mapping_mode != "auto":
-        due = mapping_mode == "on"
-    if due:
-        mstate, mouts = mapping_mod.step(state.mapping, oouts.transform_sum,
-                                         oouts.corner_cloud, oouts.surf_cloud,
-                                         cfg, imu_rpy,
-                                         static_schedule=static_schedule)
+
+def close(state: EngineState, f: Front, odometry, mapped,
+          mapping_input: bool, due: bool) -> Tuple[EngineState, EngineOutputs]:
+    """The end of a sweep: fusion, the new state and the outputs.
+    ``odometry``: odometry's (state, outputs); ``mapped``: mapping's
+    (state, outputs) when it ran, else None. ``mapping_input`` and
+    ``due`` are the host's cadence decisions for the sweep."""
+    ostate, oouts = odometry
+    dev = oouts.transform_sum.device
+    if mapped is not None:
+        mstate, mouts = mapped
         fstate = fusion_mod.update_mapping(state.fusion, mouts.transform_aft,
                                            mouts.transform_bef)
         surround_due, map_tel = mouts.surround_due, mouts.telemetry
@@ -214,8 +218,8 @@ def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
         odometry=ostate, mapping=mstate, fusion=fstate,
         sweep=state.sweep + 1,
         mapping_inputs=state.mapping_inputs + int(mapping_input))
-    tel = Telemetry(ingest_dropped=grid.dropped, feature_dropped=feats.dropped,
-                    mapping=map_tel)
+    tel = Telemetry(ingest_dropped=f.ingest_dropped,
+                    feature_dropped=f.feats.dropped, mapping=map_tel)
     outs = EngineOutputs(
         odom_pose=oouts.transform_sum, mapped_pose=fstate.transform_aft,
         fused_pose=fused, mapping_ran=mapping_due, surround_due=surround_due,
@@ -224,6 +228,147 @@ def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
                                   fused, mapping_due, surround_due, tel,
                                   mstate.archive_cnt))
     return new_state, outs
+
+
+def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
+         mapping_mode: str = "auto", cadence: Cadence = Cadence(),
+         imu_window: Optional[imu_ops.ImuWindow] = None,
+         static_schedule: bool = False
+         ) -> Tuple[EngineState, EngineOutputs]:
+    """Process one sweep. ``cadence``: the host's copy of the state's
+    counters. ``mapping_mode`` "auto" runs mapping on the cadence gate
+    (``Cadence.gate``); "on" / "off" are a cadence the caller scheduled
+    ("on" requires an initialized odometry). ``imu_window``: IMU states
+    with times relative to this sweep's start. ``static_schedule``: the
+    fixed-phase GN schedules in odometry and mapping instead of the
+    dynamic ones. It mirrors the JAX package's ``step`` argument; the
+    port's callers pair it with the mode (True with "on" / "off" from
+    ``run_chunk(static_cadence=True)``, False with "auto").
+
+    The segments are those that ``step_graphed`` replays: ``front``,
+    odometry (``odometry.step``: its first sweep, or ``gn_begin``, the
+    GN and ``finish``), mapping when due (``mapping.step``: ``prepare``,
+    the GN and ``finish``) and ``close``. This eager form, whose dynamic
+    GN reads its stop flag once an iteration, is the plain reference the
+    graphs are held to."""
+    if mapping_mode not in ("auto", "on", "off"):
+        raise ValueError(f"mapping_mode must be 'auto', 'on' or 'off', "
+                         f"got {mapping_mode!r}")
+    if mapping_mode == "on" and not cadence.initialized:
+        raise ValueError("mapping cannot run on the first sweep")
+    f = front(raw, imu_window, cfg)
+    odometry = odometry_mod.step(state.odometry, f.feats, cfg,
+                                 cadence.initialized, f.imu,
+                                 static_schedule=static_schedule)
+    mapping_input, due = cadence.gate(cfg)
+    if mapping_mode != "auto":
+        due = mapping_mode == "on"
+    mapped = None
+    if due:
+        oouts = odometry[1]
+        mapped = mapping_mod.step(
+            state.mapping, oouts.transform_sum, oouts.corner_cloud,
+            oouts.surf_cloud, cfg,
+            None if imu_window is None else f.imu_rpy,
+            static_schedule=static_schedule)
+    return close(state, f, odometry, mapped, mapping_input, due)
+
+
+def step_graphed(graphs: graph_mod.SweepGraphs, state: EngineState,
+                 raw: scan_mod.RawSweep, cfg: LoamConfig, cadence: Cadence,
+                 imu_window: Optional[imu_ops.ImuWindow] = None
+                 ) -> Tuple[EngineState, EngineOutputs]:
+    """``step(mapping_mode="auto")`` through the per-sweep graphs
+    (``graph.SweepGraphs``): the same segments, each replayed as the
+    graph of its key, and each GN as its refresh phases with one stop
+    flag read before each phase (``SweepGraphs.stopped``) instead of one
+    an iteration. A key holds the host's branches that its segment
+    bakes in: the sweep's shape and IMU window layout (the front),
+    odometry's first sweep, the phase index, and the cadence decisions
+    with the IMU (the tail). A pre segment and all its phases are
+    captured together, at the first sweep that needs the pre segment.
+    Returns fresh tensors, equal bit for bit to ``step``'s."""
+    odo, m = cfg.odometry, cfg.mapping
+    raw_slot = ("raw", tuple(raw.xyz.shape))
+    reads = (raw_slot,)
+    graphs.load("state", state)
+    graphs.load(raw_slot, raw)
+    if imu_window is not None:
+        win_slot = ("win", tuple(tuple(t.shape) for t in imu_window))
+        graphs.load(win_slot, imu_window)
+        reads += (win_slot,)
+    graphs.run(("front",) + reads, graph_mod.Segment(
+        lambda r, w=None: (front(r, w, cfg),), reads, ("front",)))
+
+    if not cadence.initialized:
+        graphs.run(("odometry_first",), graph_mod.Segment(
+            lambda s, f: (odometry_mod.first_sweep(s.odometry, f.feats, f.imu),),
+            ("state", "front"), ("odometry",)))
+    else:
+        phases = [(("odometry_phase", p), graph_mod.Segment(
+            functools.partial(_odometry_phase, phase=p, cfg=cfg),
+            ("odometry_gn", "front", "state"), ("odometry_gn",)))
+            for p in range(odometry_mod.n_phases(odo.max_iterations,
+                                                 odo.corresp_refresh_every))]
+        graphs.run(("odometry_begin",), graph_mod.Segment(
+            lambda s, f: (odometry_mod.gn_begin(s.odometry, f.imu, cfg),),
+            ("state", "front"), ("odometry_gn",)), also=phases)
+        graphs.phases("odometry_gn", phases)
+        graphs.run(("odometry_finish",), graph_mod.Segment(
+            lambda s, f, c: (odometry_mod.finish(s.odometry, f.feats, c.tf,
+                                                 f.imu, cfg),),
+            ("state", "front", "odometry_gn"), ("odometry",)))
+
+    mapping_input, due = cadence.gate(cfg)
+    tail_reads = ("state", "front", "odometry")
+    if due:
+        phases = [(("mapping_phase", p), graph_mod.Segment(
+            functools.partial(_mapping_phase, phase=p, cfg=cfg),
+            ("mapping_gn", "mapping_targets"), ("mapping_gn",)))
+            for p in range(odometry_mod.n_phases(m.max_iterations,
+                                                 m.corresp_refresh_every))]
+        graphs.run(("mapping_prepare",), graph_mod.Segment(
+            functools.partial(_mapping_prepare, cfg=cfg),
+            ("state", "odometry"),
+            ("mapping_frame", "mapping_targets", "mapping_gn")), also=phases)
+        graphs.phases("mapping_gn", phases)
+        tail_reads += ("mapping_frame", "mapping_gn")
+    imu = imu_window is not None and due
+    graphs.run(("tail", mapping_input, due, imu), graph_mod.Segment(
+        functools.partial(_tail, mapping_input=mapping_input, due=due,
+                          imu=imu, cfg=cfg),
+        tail_reads, ("state", "outputs")))
+    return graphs.take("state"), graphs.take("outputs")
+
+
+def _odometry_phase(carry, f: Front, state: EngineState, phase: int,
+                    cfg: LoamConfig):
+    o = state.odometry
+    return (odometry_mod.gn_phase(carry, phase, f.feats.sharp, f.feats.flat,
+                                  o.last_corner, o.last_surf, cfg),)
+
+
+def _mapping_prepare(state: EngineState, odometry, cfg: LoamConfig):
+    oouts = odometry[1]
+    fr = mapping_mod.prepare(state.mapping, oouts.transform_sum,
+                             oouts.corner_cloud, oouts.surf_cloud, cfg)
+    targets, run = mapping_mod.gn_targets(
+        fr.corner_stack, fr.surf_stack, fr.map_c_xyz, fr.map_c_mask,
+        fr.map_s_xyz, fr.map_s_mask, cfg)
+    return fr, targets, odometry_mod.gn_start(fr.tobe, run)
+
+
+def _mapping_phase(carry, targets, phase: int, cfg: LoamConfig):
+    return (mapping_mod.gn_phase(carry, phase, targets, cfg),)
+
+
+def _tail(state: EngineState, f: Front, odometry, fr=None, carry=None, *,
+          mapping_input: bool, due: bool, imu: bool, cfg: LoamConfig):
+    mapped = None
+    if due:
+        mapped = mapping_mod.finish(state.mapping, fr, carry.tf,
+                                    f.imu_rpy if imu else None, cfg)
+    return close(state, f, odometry, mapped, mapping_input, due)
 
 
 def _stack(items):
@@ -314,10 +459,15 @@ def registered_cloud(state: EngineState, raw: scan_mod.RawSweep,
 class Engine:
     """A run on one device: the engine state and the host's copy of its
     cadence counters. ``device`` is the card unless the caller asks for
-    the CPU. On the card the static chunk runs as CUDA graphs of one
-    group of io_ratio sweeps (``graphs``, a ``models/graph.py``
-    ``ChunkGraphs`` captured on first use per key), as the JAX driver
-    runs its jitted chunk; on the CPU it runs eagerly."""
+    the CPU. On the card the per-sweep step (``step``, and the dynamic
+    cadence of ``run_chunk``) replays the per-sweep graphs
+    (``step_graphed`` through ``sweep_graphs``, shared by every engine of
+    this configuration on the card), as the JAX driver runs its jitted
+    step, and the static chunk runs as CUDA graphs of one group of
+    io_ratio sweeps (``graphs``, a ``models/graph.py`` ``ChunkGraphs``
+    captured on first use per key), as the JAX driver runs its jitted
+    chunk; on the CPU both run eagerly. ``state`` is the caller's to
+    read and to replace between calls: each graphed call copies it in."""
 
     def __init__(self, cfg: LoamConfig, device="cuda",
                  state: EngineState | None = None):
@@ -338,6 +488,11 @@ class Engine:
     def sweep(self) -> int:
         return self.cadence.sweep
 
+    @property
+    def sweep_graphs(self) -> graph_mod.SweepGraphs:
+        """The per-sweep graphs of this configuration on this card."""
+        return graph_mod.sweep_graphs(self.cfg, self.device)
+
     def load_state(self, state: EngineState) -> None:
         """Adopt a state (a loaded checkpoint, say) and its counters."""
         self.state = state
@@ -347,12 +502,20 @@ class Engine:
         return scan_mod.RawSweep(xyz=xyz.to(self.device, torch.float32),
                                  mask=mask.to(self.device, torch.bool))
 
+    def _per_sweep(self, raw: scan_mod.RawSweep,
+                   imu_window: Optional[imu_ops.ImuWindow]):
+        """(state, outputs) of one sweep from ``self.state``: the graphs
+        on the card, the eager step on the CPU."""
+        if self.device.type == "cuda":
+            return step_graphed(self.sweep_graphs, self.state, raw, self.cfg,
+                                self.cadence, imu_window)
+        return step(self.state, raw, self.cfg, "auto", self.cadence, imu_window)
+
     def step(self, xyz: Tensor, mask: Tensor,
              imu_window: Optional[imu_ops.ImuWindow] = None) -> EngineOutputs:
         """One sweep on the per-sweep path: the cadence gate and the
         dynamic GN schedules."""
-        self.state, outs = step(self.state, self._raws(xyz, mask), self.cfg,
-                                "auto", self.cadence, imu_window)
+        self.state, outs = self._per_sweep(self._raws(xyz, mask), imu_window)
         self.cadence = self.cadence.advance(self.cfg)
         return outs
 
@@ -360,17 +523,23 @@ class Engine:
                   imu_windows: Optional[imu_ops.ImuWindow] = None,
                   static_cadence: bool = True) -> EngineOutputs:
         """Process a (K, N, 3) / (K, N) chunk of raw sweeps. The static
-        cadence runs through the CUDA graphs on the card."""
+        cadence runs through the chunk's CUDA graphs on the card; the
+        dynamic one is K sweeps of ``step``."""
         raws = self._raws(xyz, mask)
-        if static_cadence and self.device.type == "cuda":
-            check_static_chunk(self.cfg, xyz.shape[0], self.cadence)
+        k = xyz.shape[0]
+        if not static_cadence:
+            return _stack([self.step(raws.xyz[i], raws.mask[i],
+                                     None if imu_windows is None
+                                     else imu_ops.window_at(imu_windows, i))
+                           for i in range(k)])
+        if self.device.type == "cuda":
+            check_static_chunk(self.cfg, k, self.cadence)
             self.state, outs = self.graphs(self.state, raws.xyz, raws.mask,
                                            imu_windows, self.cadence)
         else:
             self.state, outs = run_chunk(self.state, raws, self.cfg,
-                                         self.cadence, imu_windows,
-                                         static_cadence)
-        for _ in range(xyz.shape[0]):
+                                         self.cadence, imu_windows)
+        for _ in range(k):
             self.cadence = self.cadence.advance(self.cfg)
         return outs
 

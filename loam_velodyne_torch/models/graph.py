@@ -1,4 +1,13 @@
-"""The compiled chunk: one group of the static chunk as a CUDA graph.
+"""The compiled chunk and the compiled per-sweep step, as CUDA graphs.
+
+``ChunkGraphs`` (below) replays the static chunk; ``SweepGraphs`` (at the
+end) the per-sweep step's segments and GN phases, the counterpart of the
+JAX driver's jitted step (``loam_velodyne_tpu/io/driver.py:55-61``),
+whose GN is a ``lax.while_loop`` on the device: here the host reads the
+loop's stop flag once a refresh phase, between two replays
+(``models/engine.py::step_graphed`` composes the segments).
+
+The static chunk: one group of the static chunk as a CUDA graph.
 
 Counterpart of ``jax.jit`` over the ``lax.scan`` of
 ``loam_velodyne_tpu/models/engine.py::run_chunk(static_cadence=True)``
@@ -47,8 +56,9 @@ of the JAX driver's dict of jitted chunk steps:
   wrapper's ``launches`` on every replay; the warm-up and the capture
   add nothing. So a graphed run reads the counts of an eager one.
 
-The graphs run on a CUDA device only (``ChunkGraphs`` raises on any
-other); the CPU runs the eager chunk.
+The graphs run on a CUDA device only (``ChunkGraphs`` and
+``SweepGraphs`` raise on any other); the CPU runs the eager chunk and
+the eager step.
 """
 
 from __future__ import annotations
@@ -90,18 +100,20 @@ def pool_bytes(device: torch.device) -> int:
 
 
 def leaves(tree) -> list:
-    """The tensors of a tree of (named) tuples, in order; None skipped."""
+    """The tensors of a tree of (named) tuples, in order; other leaves
+    (None, a Python int) skipped."""
     if isinstance(tree, tuple):
         return [t for x in tree for t in leaves(x)]
-    return [] if tree is None else [tree]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 def tree_map(fn: Callable, tree):
-    """``fn`` applied to every tensor of a tree of (named) tuples."""
+    """``fn`` applied to every tensor of a tree of (named) tuples; other
+    leaves kept as they are."""
     if isinstance(tree, tuple):
         items = [tree_map(fn, x) for x in tree]
         return tuple(items) if type(tree) is tuple else type(tree)(*items)
-    return None if tree is None else fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _cat(trees: list, dim: int):
@@ -161,6 +173,78 @@ class _Buffers(NamedTuple):
     xyz: Tensor
     mask: Tensor
     wins: object
+
+
+def _write_into(bufs: list, new: list) -> None:
+    """Copy each new tensor into its buffer. One that shares memory with
+    any of the buffers (and is not the very buffer it goes to) is cloned
+    before any copy, so that no copy reads what another has
+    overwritten."""
+    held = {b.untyped_storage().data_ptr() for b in bufs}
+    new = [n if n is b or n.untyped_storage().data_ptr() not in held
+           else n.clone() for n, b in zip(new, bufs)]
+    for b, n in zip(bufs, new):
+        if n is not b:
+            b.copy_(n)
+
+
+def capture(device: torch.device, stream, warm: Callable, body: Callable,
+            what: str) -> _Captured:
+    """A CUDA graph of ``body()`` on ``stream``, after ``warm()`` ran
+    eagerly on it (it builds the kernel library and initialises cuBLAS,
+    cuSOLVER and the autograd engine's threads). The set-up synchronises
+    the card; only the capture itself runs with synchronising calls as
+    errors. No garbage is collected during the capture: a CUDA graph or
+    event freed there (an unreachable cycle that held one) would
+    invalidate it. A failed capture raises and names ``what`` and the
+    last operation dispatched. The launches of each counted kernel in
+    the graph are measured at the capture; the warm-up and the capture
+    add none to the wrappers' counts."""
+    before = tuple(f.launches for f in COUNTED)
+    caller_sync_mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    gc_was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            warm()
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        mode = _LastOp()
+        started = tuple(f.launches for f in COUNTED)
+        try:
+            with torch.cuda.graph(graph, pool=pool(device), stream=stream):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    with mode:
+                        outs = body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of {what} failed; the last operation "
+                f"dispatched was {mode.last}") from e
+        launches = tuple(f.launches - s for f, s in zip(COUNTED, started))
+        for f, n in zip(COUNTED, before):
+            f.launches = n
+        t2 = time.perf_counter()
+        nodes = _graph_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode(caller_sync_mode)
+        if gc_was_enabled:
+            gc.enable()
+    stats = GraphStats(
+        warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
+        nodes=nodes, pool_bytes=pool_bytes(device),
+        launches={f.__name__: n for f, n in zip(COUNTED, launches)})
+    return _Captured(graph, outs, launches, stats)
 
 
 class ChunkGraphs:
@@ -257,72 +341,180 @@ class ChunkGraphs:
 
     def _capture(self, bufs: _Buffers, cadence, device) -> _Captured:
         fn = self.group(cadence)
-        before = tuple(f.launches for f in COUNTED)
         stream = self._stream.get(device)
         if stream is None:
             stream = self._stream[device] = torch.cuda.Stream(device)
         args = (bufs.state, bufs.xyz, bufs.mask, bufs.wins)
-        # The set-up synchronises the card; only the capture itself runs
-        # with synchronising calls as errors. No garbage is collected
-        # during the capture: a CUDA graph or event freed there (an
-        # unreachable cycle that held one) would invalidate it.
-        caller_sync_mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        gc_was_enabled = gc.isenabled()
-        gc.collect()
-        gc.disable()
-        try:
-            t0 = time.perf_counter()
-            stream.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(stream):
-                fn(*args)
-            torch.cuda.synchronize(device)
-            t1 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            mode = _LastOp()
-            started = tuple(f.launches for f in COUNTED)
-            try:
-                with torch.cuda.graph(graph, pool=pool(device), stream=stream):
-                    torch.cuda.set_sync_debug_mode("error")
-                    try:
-                        with mode:
-                            new_state, outs = fn(*args)
-                            self._end_state(bufs.state, new_state)
-                    finally:
-                        torch.cuda.set_sync_debug_mode(0)
-            except Exception as e:
-                raise RuntimeError(
-                    f"CUDA graph capture of the static chunk failed (group "
-                    f"shape {tuple(bufs.xyz.shape)}, branch "
-                    f"{self.branch(cadence)}); the last operation "
-                    f"dispatched was {mode.last}") from e
-            launches = tuple(f.launches - s for f, s in zip(COUNTED, started))
-            for f, n in zip(COUNTED, before):
-                f.launches = n
-            t2 = time.perf_counter()
-            nodes = _graph_nodes(graph.raw_cuda_graph())
-            graph.instantiate()
-            torch.cuda.synchronize(device)
-            t3 = time.perf_counter()
-        finally:
-            torch.cuda.set_sync_debug_mode(caller_sync_mode)
-            if gc_was_enabled:
-                gc.enable()
-        stats = GraphStats(
-            warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
-            nodes=nodes, pool_bytes=pool_bytes(device),
-            launches={f.__name__: n for f, n in zip(COUNTED, launches)})
-        return _Captured(graph, outs, launches, stats)
+
+        def body():
+            new_state, outs = fn(*args)
+            self._end_state(bufs.state, new_state)
+            return outs
+
+        return capture(device, stream, lambda: fn(*args), body,
+                       f"the static chunk (group shape {tuple(bufs.xyz.shape)}, "
+                       f"branch {self.branch(cadence)})")
 
     @staticmethod
     def _end_state(state_bufs, new_state) -> None:
         """Copy the group's new state into the state buffers, inside the
-        capture (a leaf that shares memory with a buffer is cloned
-        first, so no copy reads what another has overwritten)."""
-        have, new = leaves(state_bufs), leaves(new_state)
-        held = {b.untyped_storage().data_ptr() for b in have}
-        new = [n if n is b or n.untyped_storage().data_ptr() not in held
-               else n.clone() for n, b in zip(new, have)]
-        for b, n in zip(have, new):
-            if n is not b:
-                b.copy_(n)
+        capture."""
+        _write_into(leaves(state_bufs), leaves(new_state))
+
+
+class Segment(NamedTuple):
+    """One segment of the per-sweep step: ``fn(*reads)`` returns one tree
+    per slot of ``writes``; ``reads`` and ``writes`` name slots of a
+    ``SweepGraphs``."""
+
+    fn: Callable
+    reads: tuple
+    writes: tuple
+
+
+class SweepGraphs:
+    """The per-sweep step's graphs on one card: one CUDA graph per
+    segment key (``models/engine.py::step_graphed`` names the segments
+    and their keys), all in the card's shared pool.
+
+    - **Slots.** The segments pass their inputs and outputs through
+      named slots: trees of device buffers outside the pool (the state,
+      the raw sweep, the IMU window, the front's features, each GN's
+      carry, ...). A graph reads its slots and ends by copying its
+      outputs into the slots it writes, so no data that outlives a
+      replay sits in the pool, and the graphs may replay in any order
+      and any number of times: a GN phase reads and writes its carry's
+      slot. ``load`` copies a caller's tree into a slot (the state, each
+      call), ``take`` returns fresh copies of one.
+    - **Capture.** A key's graph is captured at its first use, after a
+      warm-up of its segment on a side stream that also allocates, from
+      its outputs, the slots it is the first to write (so the slots hold
+      valid values for the next segment's warm-up); ``run(..., also=)``
+      captures a group of keys together (a GN's pre segment with all its
+      phases). A segment is a function of its slots: neither the warm-up
+      nor the capture changes a slot.
+    - **Stop flags.** ``stopped`` reads a GN carry's ``done`` flag
+      between two replays: a copy into pinned host memory behind a CUDA
+      event, counted in ``flag_reads``. It never sits inside a capture.
+    - **Launch counts** as in ``ChunkGraphs``: measured at the capture,
+      added on every replay.
+
+    ``sweep_graphs`` gives every engine of one configuration on one card
+    the same ``SweepGraphs``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.slots: dict = {}
+        self._graphs: dict = {}
+        self._stream = None
+        self._flag = None
+        self.flag_reads = 0
+        self.replays = 0
+
+    @property
+    def stats(self) -> dict:
+        """GraphStats of every graph captured so far, by key."""
+        return {k: c.stats for k, c in self._graphs.items()}
+
+    def load(self, slot, tree) -> None:
+        """Copy a tree of tensors into the slot's buffers (made from the
+        tree the first time)."""
+        bufs = self.slots.get(slot)
+        if bufs is None:
+            self.slots[slot] = tree_map(
+                lambda t: t.to(self.device, copy=True), tree)
+        else:
+            ChunkGraphs._copy_in(bufs, tree)
+
+    def take(self, slot):
+        """Fresh copies of a slot's tensors: no later replay writes them."""
+        return tree_map(torch.clone, self.slots[slot])
+
+    def run(self, key, segment: Segment, also=()) -> None:
+        """Replay the graph of ``key``. On its first use it is captured,
+        and with it every (key, segment) of ``also`` not captured yet."""
+        cap = self._graphs.get(key)
+        if cap is None:
+            for k, seg in ((key, segment),) + tuple(also):
+                if k not in self._graphs:
+                    self._graphs[k] = self._capture(k, seg)
+            cap = self._graphs[key]
+        cap.graph.replay()
+        for fn, n in zip(COUNTED, cap.launches):
+            fn.launches += n
+        self.replays += 1
+
+    def phases(self, slot, phases) -> None:
+        """A GN's phases, (key, segment) in order, over the carry in
+        ``slot``: before each, the host reads whether the carry is done
+        and, if it is, skips the rest."""
+        for key, seg in phases:
+            if self.stopped(slot):
+                return
+            self.run(key, seg)
+
+    def stopped(self, slot) -> bool:
+        """Whether the GN carry in ``slot`` is done: one read of its
+        flag."""
+        self.flag_reads += 1
+        return self._read(self.slots[slot].done)
+
+    def _read(self, flag: Tensor) -> bool:
+        if self._flag is None:
+            self._flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        self._flag.copy_(flag, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        return bool(self._flag)
+
+    def _capture(self, key, seg: Segment) -> _Captured:
+        def args():
+            return [self.slots[s] for s in seg.reads]
+
+        def warm():
+            for slot, tree in zip(seg.writes, seg.fn(*args())):
+                if slot not in self.slots:
+                    self.slots[slot] = tree_map(torch.clone, tree)
+
+        return self._record(warm,
+                            lambda: self._write(seg.writes, seg.fn(*args())),
+                            f"the per-sweep segment {key}")
+
+    def _record(self, warm: Callable, body: Callable, what: str) -> _Captured:
+        """``capture`` on this card's side stream."""
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got "
+                             f"{self.device}: the CPU runs the eager step")
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return capture(self.device, self._stream, warm, body, what)
+
+    def _write(self, writes: tuple, outs: tuple) -> None:
+        """Copy a segment's outputs into the slots it writes."""
+        have, new = [], []
+        for slot, tree in zip(writes, outs):
+            bufs = leaves(self.slots[slot])
+            got = leaves(tree)
+            if len(bufs) != len(got) or any(
+                    b.shape != t.shape or b.dtype != t.dtype
+                    for b, t in zip(bufs, got)):
+                raise ValueError(f"slot {slot!r}: a segment wrote another "
+                                 "layout than the slot holds")
+            have += bufs
+            new += got
+        _write_into(have, new)
+
+
+_sweep_graphs: dict = {}
+
+
+def sweep_graphs(cfg: LoamConfig, device) -> SweepGraphs:
+    """The per-sweep graphs of ``cfg`` on ``device``, one for the
+    process (as the JAX package keeps one compiled step per shape): the
+    engines of one configuration share them, each graphed sweep copying
+    its own state in (``SweepGraphs.load``)."""
+    key = (cfg, torch.device(device))
+    if key not in _sweep_graphs:
+        _sweep_graphs[key] = SweepGraphs(device)
+    return _sweep_graphs[key]

@@ -8,7 +8,12 @@ iterations past the early abort frozen by masks, nothing read back) and
 the dynamic one (fits refreshed every ``corresp_refresh_every``
 iterations, the loop left at the first converged iteration, one read
 of the stop flag per iteration). ``step`` takes the IMU's sweep-end
-attitude for the 0.998 / 0.002 roll / pitch blend. The exports
+attitude for the 0.998 / 0.002 roll / pitch blend. A step is three
+parts, so that the per-sweep graphs can read the GN's stop flag between
+them: ``prepare`` (the stacks, the recentred window and the map clouds
+the GN aligns to), the GN (``gn_targets``, then ``gn_phase`` per refresh
+phase, which the static schedule also loops over) and ``finish`` (the
+IMU blend, the map update and the telemetry). The exports
 (``full_map``, ``surround_map``) and the archive's dedup compaction
 (``compact_archive``) run off the per-sweep path.
 
@@ -32,10 +37,12 @@ import torch.nn.functional as F
 from torch.func import grad, vmap
 
 from loam_velodyne_torch.config import LoamConfig, MappingConfig
-from loam_velodyne_torch.models.odometry import degeneracy_projector, solve_gn
+from loam_velodyne_torch.models.odometry import (GnCarry, degeneracy_projector,
+                                                 gn_start, n_phases, solve_gn)
 from loam_velodyne_torch.ops import fit
 from loam_velodyne_torch.ops.features import top_k
-from loam_velodyne_torch.ops.neighbors import sort_cloud, tiled_windowed_knn
+from loam_velodyne_torch.ops.neighbors import (SortedCloud, sort_cloud,
+                                               tiled_windowed_knn)
 from loam_velodyne_torch.ops.voxel import voxel_downsample
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
@@ -446,106 +453,145 @@ def _line_dist(x0: Tensor, a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
     return d, direction
 
 
+class GnTargets(NamedTuple):
+    """What the map GN aligns: the frame's downsampled stacks and the
+    map clouds sorted for the windowed 5-NN."""
+
+    corner_stack: PointSet
+    surf_stack: PointSet
+    corner_sorted: SortedCloud
+    surf_sorted: SortedCloud
+
+
+def gn_targets(corner_stack: PointSet, surf_stack: PointSet,
+               map_corner_xyz: Tensor, map_corner_mask: Tensor,
+               map_surf_xyz: Tensor, map_surf_mask: Tensor,
+               cfg: LoamConfig) -> Tuple[GnTargets, Tensor]:
+    """The GN's targets, and whether it runs at all (the map clouds
+    large enough)."""
+    m = cfg.mapping
+    run = ((map_corner_mask.sum() > m.min_corner_map_points)
+           & (map_surf_mask.sum() > m.min_surface_map_points))
+    return GnTargets(corner_stack, surf_stack,
+                     sort_cloud(map_corner_xyz, map_corner_mask, axis=2),
+                     sort_cloud(map_surf_xyz, map_surf_mask, axis=2)), run
+
+
+def _refresh_fits(tf: Tensor, t: GnTargets, m: MappingConfig) -> tuple:
+    """The 5-NN of each stack point at ``tf`` (K4) and the line / plane
+    fits through them."""
+    qc = _map_point(tf, t.corner_stack.xyz)
+    _, d2_c, nbrs_c = tiled_windowed_knn(
+        qc, t.corner_stack.mask, t.corner_sorted, k=5, window=m.knn_window,
+        group=m.knn_group, return_neighbors=True)
+    centroid, direction, line_ok = fit.line_fit(nbrs_c, m.line_eigen_ratio)
+    pa = centroid + m.line_half_length * direction
+    pb = centroid - m.line_half_length * direction
+    qs = _map_point(tf, t.surf_stack.xyz)
+    _, d2_s, nbrs_s = tiled_windowed_knn(
+        qs, t.surf_stack.mask, t.surf_sorted, k=5, window=m.knn_window,
+        group=m.knn_group, return_neighbors=True)
+    normal, dplane, plane_ok = fit.plane_fit(nbrs_s, m.plane_max_residual)
+    return (pa, pb,
+            t.corner_stack.mask & (d2_c[:, 4] < m.nn_sq_dist_gate) & line_ok,
+            normal, dplane,
+            t.surf_stack.mask & (d2_s[:, 4] < m.nn_sq_dist_gate) & plane_ok)
+
+
+def _iteration(tf, mat_p0, degenerate0, t: GnTargets, fits: tuple,
+               m: MappingConfig, compute_projector: bool):
+    """One map GN update against cached fits; returns (tf_new, mat_p,
+    degenerate, done)."""
+    pa, pb, cvalid, normal, dplane, svalid = fits
+    qc = _map_point(tf, t.corner_stack.xyz)
+    d_c, dir_c = _line_dist(qc, pa, pb)
+    s_c = 1.0 - m.corner_weight_decay * d_c.abs()
+    sel_c = cvalid & (s_c > m.weight_floor)
+    coeff_c = (s_c[:, None] * dir_c) * sel_c[:, None]
+
+    qs = _map_point(tf, t.surf_stack.xyz)
+    d_s = (normal * qs).sum(-1) + dplane
+    dist_s = torch.sqrt(_norm(qs))
+    s_s = 1.0 - m.corner_weight_decay * d_s.abs() / dist_s.clamp(min=1e-6)
+    sel_s = svalid & (s_s > m.weight_floor)
+    coeff_s = (s_s[:, None] * normal) * sel_s[:, None]
+
+    a_rows = torch.cat([_jacobian_rows(tf, t.corner_stack.xyz, coeff_c),
+                        _jacobian_rows(tf, t.surf_stack.xyz, coeff_s)], dim=0)
+    b_vec = torch.cat([-s_c * d_c * sel_c, -s_s * d_s * sel_s])
+    enough = (sel_c.sum() + sel_s.sum()) >= m.min_selected
+    x, ata = solve_gn(a_rows, b_vec)
+    if compute_projector:
+        p, dg = degeneracy_projector(ata, m.degeneracy_eigen_threshold)
+        mat_p = torch.where(enough, p, mat_p0)
+        degenerate = enough & dg
+    else:
+        mat_p, degenerate = mat_p0, degenerate0
+    x = torch.where(degenerate, mat_p @ x, x)
+    tf_new = tf + x
+    tf_new = torch.where(torch.isfinite(tf_new), tf_new, 0.0)
+    tf_new = torch.where(enough, tf_new, tf)
+    delta_r = _norm(lm.rad2deg(x[:3]))
+    delta_t = _norm(x[3:] * 100.0)
+    done = enough & (delta_r < m.delta_r_abort) & (delta_t < m.delta_t_abort)
+    return tf_new, mat_p, degenerate, done
+
+
+def gn_phase(carry: GnCarry, phase: int, targets: GnTargets,
+             cfg: LoamConfig) -> GnCarry:
+    """Phase ``phase`` of the map GN: the 5-NN and fits refreshed at the
+    carried pose (K4), then the phase's iterations against them, each
+    after the stop frozen by masks (as ``odometry.gn_phase``)."""
+    m = cfg.mapping
+    tf, mat_p, degenerate, done = carry
+    fits = _refresh_fits(tf, targets, m)
+    for j in range(m.corresp_refresh_every):
+        it = phase * m.corresp_refresh_every + j
+        if it >= m.max_iterations:
+            break
+        tf_new, mat_p_new, degen_new, done_step = _iteration(
+            tf, mat_p, degenerate, targets, fits, m,
+            compute_projector=(it == 0))
+        active = ~done
+        tf = torch.where(active, tf_new, tf)
+        mat_p = torch.where(active, mat_p_new, mat_p)
+        degenerate = torch.where(active, degen_new, degenerate)
+        done = done | (active & done_step)
+    return GnCarry(tf, mat_p, degenerate, done)
+
+
 def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
                   map_corner_xyz: Tensor, map_corner_mask: Tensor,
                   map_surf_xyz: Tensor, map_surf_mask: Tensor,
                   tobe0: Tensor, cfg: LoamConfig,
                   static_schedule: bool = True) -> Tensor:
-    """The <=10-iteration map-alignment GN. Static schedule: 5-NN and
-    fits refreshed at each phase start, early abort as masked freezing.
-    Dynamic schedule: refreshed when ``it % corresp_refresh_every == 0``,
-    the loop left at the first converged iteration (or at once when the
-    map is too small), each read on the host."""
+    """The <=10-iteration map-alignment GN. Static schedule: the phases
+    of ``gn_phase``, early abort as masked freezing. Dynamic schedule:
+    refreshed when ``it % corresp_refresh_every == 0``, the loop left at
+    the first converged iteration (or at once when the map is too
+    small), each read on the host."""
     m = cfg.mapping
-    dev = tobe0.device
-    corner_sorted = sort_cloud(map_corner_xyz, map_corner_mask, axis=2)
-    surf_sorted = sort_cloud(map_surf_xyz, map_surf_mask, axis=2)
-    run = ((map_corner_mask.sum() > m.min_corner_map_points)
-           & (map_surf_mask.sum() > m.min_surface_map_points))
-
-    def refresh_fits(tf):
-        qc = _map_point(tf, corner_stack.xyz)
-        _, d2_c, nbrs_c = tiled_windowed_knn(
-            qc, corner_stack.mask, corner_sorted, k=5, window=m.knn_window,
-            group=m.knn_group, return_neighbors=True)
-        centroid, direction, line_ok = fit.line_fit(nbrs_c, m.line_eigen_ratio)
-        pa = centroid + m.line_half_length * direction
-        pb = centroid - m.line_half_length * direction
-        qs = _map_point(tf, surf_stack.xyz)
-        _, d2_s, nbrs_s = tiled_windowed_knn(
-            qs, surf_stack.mask, surf_sorted, k=5, window=m.knn_window,
-            group=m.knn_group, return_neighbors=True)
-        normal, dplane, plane_ok = fit.plane_fit(nbrs_s, m.plane_max_residual)
-        return (pa, pb,
-                corner_stack.mask & (d2_c[:, 4] < m.nn_sq_dist_gate) & line_ok,
-                normal, dplane,
-                surf_stack.mask & (d2_s[:, 4] < m.nn_sq_dist_gate) & plane_ok)
-
-    def iteration(tf, mat_p0, degenerate0, pa, pb, cvalid, normal, dplane,
-                  svalid, compute_projector):
-        qc = _map_point(tf, corner_stack.xyz)
-        d_c, dir_c = _line_dist(qc, pa, pb)
-        s_c = 1.0 - m.corner_weight_decay * d_c.abs()
-        sel_c = cvalid & (s_c > m.weight_floor)
-        coeff_c = (s_c[:, None] * dir_c) * sel_c[:, None]
-
-        qs = _map_point(tf, surf_stack.xyz)
-        d_s = (normal * qs).sum(-1) + dplane
-        dist_s = torch.sqrt(_norm(qs))
-        s_s = 1.0 - m.corner_weight_decay * d_s.abs() / dist_s.clamp(min=1e-6)
-        sel_s = svalid & (s_s > m.weight_floor)
-        coeff_s = (s_s[:, None] * normal) * sel_s[:, None]
-
-        a_rows = torch.cat([_jacobian_rows(tf, corner_stack.xyz, coeff_c),
-                            _jacobian_rows(tf, surf_stack.xyz, coeff_s)], dim=0)
-        b_vec = torch.cat([-s_c * d_c * sel_c, -s_s * d_s * sel_s])
-        enough = (sel_c.sum() + sel_s.sum()) >= m.min_selected
-        x, ata = solve_gn(a_rows, b_vec)
-        if compute_projector:
-            p, dg = degeneracy_projector(ata, m.degeneracy_eigen_threshold)
-            mat_p = torch.where(enough, p, mat_p0)
-            degenerate = enough & dg
-        else:
-            mat_p, degenerate = mat_p0, degenerate0
-        x = torch.where(degenerate, mat_p @ x, x)
-        tf_new = tf + x
-        tf_new = torch.where(torch.isfinite(tf_new), tf_new, 0.0)
-        tf_new = torch.where(enough, tf_new, tf)
-        delta_r = _norm(lm.rad2deg(x[:3]))
-        delta_t = _norm(x[3:] * 100.0)
-        done = enough & (delta_r < m.delta_r_abort) & (delta_t < m.delta_t_abort)
-        return tf_new, mat_p, degenerate, done
-
-    refresh_every = m.corresp_refresh_every
-    n_phases = -(-m.max_iterations // refresh_every)
+    targets, run = gn_targets(corner_stack, surf_stack, map_corner_xyz,
+                              map_corner_mask, map_surf_xyz, map_surf_mask,
+                              cfg)
+    if static_schedule:
+        carry = gn_start(tobe0, run)
+        for phase in range(n_phases(m.max_iterations, m.corresp_refresh_every)):
+            carry = gn_phase(carry, phase, targets, cfg)
+        return carry.tf
+    if not bool(run):
+        return tobe0
     tf = tobe0
-    mat_p = torch.eye(6, dtype=torch.float32, device=dev)
-    degenerate = torch.zeros((), dtype=torch.bool, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    if not static_schedule:
-        if not bool(run):
-            return tobe0
-        for it in range(m.max_iterations):
-            if it % refresh_every == 0:
-                fits = refresh_fits(tf)
-            tf, mat_p, degenerate, done = iteration(
-                tf, mat_p, degenerate, *fits, compute_projector=(it == 0))
-            if bool(done):
-                break
-        return tf
-    for phase in range(n_phases):
-        fits = refresh_fits(tf)
-        for j in range(refresh_every):
-            it = phase * refresh_every + j
-            if it >= m.max_iterations:
-                break
-            tf_new, mat_p_new, degen_new, done_step = iteration(
-                tf, mat_p, degenerate, *fits, compute_projector=(it == 0))
-            active = run & ~done
-            tf = torch.where(active, tf_new, tf)
-            mat_p = torch.where(active, mat_p_new, mat_p)
-            degenerate = torch.where(active, degen_new, degenerate)
-            done = done | (active & done_step)
+    mat_p = torch.eye(6, dtype=torch.float32, device=tobe0.device)
+    degenerate = torch.zeros((), dtype=torch.bool, device=tobe0.device)
+    for it in range(m.max_iterations):
+        if it % m.corresp_refresh_every == 0:
+            fits = _refresh_fits(tf, targets, m)
+        tf, mat_p, degenerate, done = _iteration(
+            tf, mat_p, degenerate, targets, fits, m,
+            compute_projector=(it == 0))
+        if bool(done):
+            break
     return tf
 
 
@@ -584,13 +630,45 @@ def _clip_tails(xyz: Tensor, cnt: Tensor, cap: int, m: MappingConfig):
             tmask.reshape(-1), _i32(missed))
 
 
-def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
-         surf_cloud: PointSet, cfg: LoamConfig,
-         imu_rpy: Optional[Tuple[Tensor, Tensor]] = None,
-         static_schedule: bool = True
-         ) -> Tuple[MappingState, MappingOutputs]:
-    """One mapping refinement. imu_rpy: optional ((roll, pitch, yaw) at
-    the sweep end, window has data) for the roll / pitch blend."""
+class MapFrame(NamedTuple):
+    """A mapping frame before its GN (``prepare``): the pose to refine,
+    the downsampled stacks, the recentred window and its FOV cubes, the
+    local slabs, the active cubes and the map clouds they make."""
+
+    odom_pose: Tensor
+    tobe: Tensor
+    corner_stack: PointSet
+    surf_stack: PointSet
+    stack_c_drop: Tensor
+    stack_s_drop: Tensor
+    sensor_w: Tensor
+    new_origin: Tensor
+    corner_cnt: Tensor
+    surf_cnt: Tensor
+    arch_valid: Tensor
+    arch_wanted: Tensor
+    sidx: Tensor
+    valid_fov: Tensor
+    in_bounds: Tensor
+    local_c: Tensor
+    local_cc: Tensor
+    local_s: Tensor
+    local_sc: Tensor
+    populated: Tensor
+    pos_a: Tensor
+    act_a: Tensor
+    map_c_xyz: Tensor
+    map_c_mask: Tensor
+    map_s_xyz: Tensor
+    map_s_mask: Tensor
+
+
+def prepare(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
+            surf_cloud: PointSet, cfg: LoamConfig) -> MapFrame:
+    """The frame up to its GN: the pose associated to the map, the
+    stacks, the window recentred on the sensor (archive rows whose cube
+    left it invalidated), the FOV cubes and the map clouds of the active
+    ones."""
     m = cfg.mapping
     dev = odom_pose.device
 
@@ -626,9 +704,27 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
 
     map_c_xyz, map_c_mask = assemble_map_cloud(local_c, local_cc, pos_a, act_a)
     map_s_xyz, map_s_mask = assemble_map_cloud(local_s, local_sc, pos_a, act_a)
-    tobe = optimize_pose(corner_stack, surf_stack, map_c_xyz, map_c_mask,
-                         map_s_xyz, map_s_mask, tobe, cfg,
-                         static_schedule=static_schedule)
+    return MapFrame(
+        odom_pose=odom_pose, tobe=tobe, corner_stack=corner_stack,
+        surf_stack=surf_stack, stack_c_drop=stack_c_drop,
+        stack_s_drop=stack_s_drop, sensor_w=sensor_w, new_origin=new_origin,
+        corner_cnt=corner_cnt, surf_cnt=surf_cnt, arch_valid=arch_valid,
+        arch_wanted=arch_wanted, sidx=sidx, valid_fov=valid_fov,
+        in_bounds=in_bounds, local_c=local_c, local_cc=local_cc,
+        local_s=local_s, local_sc=local_sc, populated=populated, pos_a=pos_a,
+        act_a=act_a, map_c_xyz=map_c_xyz, map_c_mask=map_c_mask,
+        map_s_xyz=map_s_xyz, map_s_mask=map_s_mask)
+
+
+def finish(state: MappingState, fr: MapFrame, tobe: Tensor,
+           imu_rpy: Optional[Tuple[Tensor, Tensor]], cfg: LoamConfig
+           ) -> Tuple[MappingState, MappingOutputs]:
+    """The frame after its GN (``tobe``, the refined pose): the IMU's
+    roll / pitch blend, the stacks inserted into the local slabs,
+    re-thinned and clipped, the overflow archived, the slabs written
+    back, far points and archive rows reinstated, and the telemetry."""
+    m = cfg.mapping
+    dev = tobe.device
     if imu_rpy is not None:
         rpy, imu_ok = imu_rpy
         blend = m.imu_blend
@@ -639,18 +735,21 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
                             tobe[4], tobe[5]])
 
     # Insert into headroom-padded local slabs, re-thin, clip back.
-    base_w = sensor_w - m.neighborhood
-    corner_map_pts = _map_point(tobe, corner_stack.xyz)
-    surf_map_pts = _map_point(tobe, surf_stack.xyz)
-    nl = local_c.shape[0]
+    base_w = fr.sensor_w - m.neighborhood
+    corner_map_pts = _map_point(tobe, fr.corner_stack.xyz)
+    surf_map_pts = _map_point(tobe, fr.surf_stack.xyz)
+    nl = fr.local_c.shape[0]
+    in_bounds = fr.in_bounds
 
     def pad_slab(x):
         return torch.cat([x, x.new_zeros((nl, m.insert_headroom, 3))], dim=1)
 
     local_c, local_cc, recv_c, ovf_c, far_c = insert_into_local_slabs(
-        pad_slab(local_c), local_cc, corner_map_pts, corner_stack.mask, base_w, m)
+        pad_slab(fr.local_c), fr.local_cc, corner_map_pts,
+        fr.corner_stack.mask, base_w, m)
     local_s, local_sc, recv_s, ovf_s, far_s = insert_into_local_slabs(
-        pad_slab(local_s), local_sc, surf_map_pts, surf_stack.mask, base_w, m)
+        pad_slab(fr.local_s), fr.local_sc, surf_map_pts, fr.surf_stack.mask,
+        base_w, m)
 
     def thin(xyz, cnt, recv, leaf):
         pos, act = _select_active(recv & in_bounds, m.thin_active_cubes,
@@ -668,7 +767,8 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
     local_s, local_sc, tail_s, tmask_s, miss_s = _clip_tails(
         local_s, local_sc, m.surf_cube_capacity, m)
 
-    pool = (state.archive_xyz, state.archive_kind, arch_valid, state.archive_cnt)
+    pool = (state.archive_xyz, state.archive_kind, fr.arch_valid,
+            state.archive_cnt)
     pool, lost_c = archive_append(
         pool, torch.cat([ovf_c[0], tail_c]), torch.cat([ovf_c[1], tmask_c]),
         0, m.archive_append_budget)
@@ -681,11 +781,11 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
 
     # Whole-slab write-back; out-of-window aliases are dropped.
     nc = m.n_cubes
-    sidx_safe = torch.where(in_bounds, sidx, nc)
+    sidx_safe = torch.where(in_bounds, fr.sidx, nc)
     corner_xyz = _set_rows_drop(state.corner_xyz, sidx_safe, local_c)
-    corner_cnt = _set_rows_drop(corner_cnt, sidx_safe, _i32(local_cc))
+    corner_cnt = _set_rows_drop(fr.corner_cnt, sidx_safe, _i32(local_cc))
     surf_xyz = _set_rows_drop(state.surf_xyz, sidx_safe, local_s)
-    surf_cnt = _set_rows_drop(surf_cnt, sidx_safe, _i32(local_sc))
+    surf_cnt = _set_rows_drop(fr.surf_cnt, sidx_safe, _i32(local_sc))
 
     # Far points and archive reinstatement ride one global scatter.
     fb = m.far_insert_budget
@@ -697,7 +797,7 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
     cursor = state.archive_cursor
     rot = torch.remainder(torch.arange(a_cap, dtype=torch.int32, device=dev)
                           - cursor, a_cap)
-    first = torch.where(arch_wanted, rot, a_cap).min()
+    first = torch.where(fr.arch_wanted, rot, a_cap).min()
     limit = arch_cnt.clamp(min=1)
     r_start = torch.where(first < a_cap, torch.remainder(cursor + first, a_cap),
                           torch.remainder(cursor, limit))
@@ -710,10 +810,10 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
 
     corner_xyz, corner_cnt, _, keep_c, ok_c = scatter_into_cubes(
         corner_xyz, corner_cnt, torch.cat([far_c_xyz, cand_xyz]),
-        torch.cat([far_c_mask, cand_valid & (cand_kind == 0)]), new_origin, m)
+        torch.cat([far_c_mask, cand_valid & (cand_kind == 0)]), fr.new_origin, m)
     surf_xyz, surf_cnt, _, keep_s, ok_s = scatter_into_cubes(
         surf_xyz, surf_cnt, torch.cat([far_s_xyz, cand_xyz]),
-        torch.cat([far_s_mask, cand_valid & (cand_kind == 1)]), new_origin, m)
+        torch.cat([far_s_mask, cand_valid & (cand_kind == 1)]), fr.new_origin, m)
     far_c_drop = (ok_c[:fb] & ~keep_c[:fb]).sum(dtype=torch.int32)
     far_s_drop = (ok_s[:fb] & ~keep_s[:fb]).sum(dtype=torch.int32)
     cube_c_drop = cube_c_drop + far_c_over + far_c_drop
@@ -725,25 +825,40 @@ def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
     new_state = MappingState(
         corner_xyz=corner_xyz, corner_cnt=corner_cnt,
         surf_xyz=surf_xyz, surf_cnt=surf_cnt,
-        origin=new_origin, transform_tobe=tobe,
-        transform_aft=tobe, transform_bef=odom_pose,
+        origin=fr.new_origin, transform_tobe=tobe,
+        transform_aft=tobe, transform_bef=fr.odom_pose,
         map_frame=state.map_frame + 1,
         archive_xyz=arch_xyz, archive_kind=arch_kind,
         archive_valid=arch_valid, archive_cnt=arch_cnt,
         archive_cursor=_i32(new_cursor))
-    deficit = ((valid_fov & populated).sum() - (act_a & populated[pos_a]).sum()
-               ).clamp(min=0)
+    deficit = ((fr.valid_fov & fr.populated).sum()
+               - (fr.act_a & fr.populated[fr.pos_a]).sum()).clamp(min=0)
     telemetry = MapTelemetry(
-        stack_corner_dropped=_i32(stack_c_drop),
-        stack_surf_dropped=_i32(stack_s_drop),
+        stack_corner_dropped=_i32(fr.stack_c_drop),
+        stack_surf_dropped=_i32(fr.stack_s_drop),
         cube_corner_dropped=_i32(cube_c_drop),
         cube_surf_dropped=_i32(cube_s_drop),
         active_cube_deficit=_i32(deficit),
         archive_reinstated=accepted.sum(dtype=torch.int32))
     surround_due = (state.map_frame % m.map_frame_num) == 0
-    return new_state, MappingOutputs(transform_aft=tobe, transform_bef=odom_pose,
+    return new_state, MappingOutputs(transform_aft=tobe,
+                                     transform_bef=fr.odom_pose,
                                      surround_due=surround_due,
                                      telemetry=telemetry)
+
+
+def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
+         surf_cloud: PointSet, cfg: LoamConfig,
+         imu_rpy: Optional[Tuple[Tensor, Tensor]] = None,
+         static_schedule: bool = True
+         ) -> Tuple[MappingState, MappingOutputs]:
+    """One mapping refinement. imu_rpy: optional ((roll, pitch, yaw) at
+    the sweep end, window has data) for the roll / pitch blend."""
+    fr = prepare(state, odom_pose, corner_cloud, surf_cloud, cfg)
+    tobe = optimize_pose(fr.corner_stack, fr.surf_stack, fr.map_c_xyz,
+                         fr.map_c_mask, fr.map_s_xyz, fr.map_s_mask, fr.tobe,
+                         cfg, static_schedule=static_schedule)
+    return finish(state, fr, tobe, imu_rpy, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -6,13 +6,22 @@ chunked replay's): correspondences are re-found at the start of each
 refresh phase through kernel K3, and an iteration that would come after
 the early abort is frozen by masks instead of skipped, so nothing is
 read back from the device. The dynamic one (``run_gauss_newton`` with
-``static_schedule=False``, the per-sweep path's): correspondences are
-re-found every ``corresp_refresh_every`` iterations and the loop stops
-at the first converged iteration, which costs one read of the stop
-flag per iteration. Both give the same transform. The IMU sweep state
-(``ops/imu.py::sweep_state``) enters as in the JAX package: the
-pitch / roll seed on the first sweep, the velocity prior, the shift
-terms and ``plugin_imu_rotation``; without an IMU it is zero.
+``static_schedule=False``, the per-sweep path's plain reference):
+correspondences are re-found every ``corresp_refresh_every`` iterations
+and the loop stops at the first converged iteration, which costs one
+read of the stop flag per iteration. Both give the same transform. The
+IMU sweep state (``ops/imu.py::sweep_state``) enters as in the JAX
+package: the pitch / roll seed on the first sweep, the velocity prior,
+the shift terms and ``plugin_imu_rotation``; without an IMU it is zero.
+
+A step is three parts, so that the per-sweep graphs
+(``models/engine.py::step_graphed``) can read the stop flag between
+them: ``gn_begin`` (the start transform and whether the GN runs at
+all), the GN phases (``gn_phase``, one refresh of the correspondences
+and its iterations, which ``run_gn_static`` also loops over) and
+``finish`` (the pose accumulation and the clouds for the next sweep);
+``first_sweep`` is the step of a sequence's first sweep, which has no
+GN.
 
 Which branch a step takes (first sweep or not) is a host-side flag: it
 is a function of the sweep counter, which the engine keeps on the host.
@@ -188,45 +197,85 @@ def _gn_iteration(tf, it: int, mat_p0, degenerate0, x_c, x_s, sharp, flat,
     return tf_new, mat_p, degenerate, done
 
 
-def run_gn_static(sharp: PointSet, flat: PointSet, last_corner: PointSet,
-                  last_surf: PointSet, tf0: Tensor, cfg: LoamConfig) -> Tensor:
-    """The fixed-phase GN: ceil(max_iterations / refresh_every) phases,
-    correspondences refreshed at each phase start, early abort as masked
-    freezing. Returns the refined transform."""
+class GnCarry(NamedTuple):
+    """What one GN phase hands to the next: the transform, the first
+    iteration's degeneracy projector and flag, and whether the loop has
+    stopped (converged, or never started because a cloud was too
+    small)."""
+
+    tf: Tensor
+    mat_p: Tensor
+    degenerate: Tensor
+    done: Tensor
+
+
+def gn_start(tf0: Tensor, run: Tensor) -> GnCarry:
+    """The carry before the first phase; ``run`` False stops the GN
+    before it starts."""
+    return GnCarry(tf=tf0, mat_p=torch.eye(6, dtype=torch.float32,
+                                           device=tf0.device),
+                   degenerate=torch.zeros((), dtype=torch.bool,
+                                          device=tf0.device),
+                   done=~run)
+
+
+def n_phases(max_iterations: int, refresh_every: int) -> int:
+    """Refresh phases of a GN schedule."""
+    return -(-max_iterations // refresh_every)
+
+
+def _runs(last_corner: PointSet, last_surf: PointSet, odo) -> Tensor:
+    return ((last_corner.count() > odo.min_corner_points)
+            & (last_surf.count() > odo.min_surface_points))
+
+
+def gn_phase(carry: GnCarry, phase: int, sharp: PointSet, flat: PointSet,
+             last_corner: PointSet, last_surf: PointSet,
+             cfg: LoamConfig) -> GnCarry:
+    """Phase ``phase`` of the GN: the correspondences refreshed at the
+    carried transform (K3), then the phase's iterations against them.
+    An iteration after the stop is frozen by masks, so a phase computes
+    what the dynamic loop computes up to its break, and changes nothing
+    once the carry is done. ``phase`` is a Python int: it fixes which
+    iterations are weighted and which computes the projector."""
     odo = cfg.odometry
     refresh_every = odo.corresp_refresh_every
-    n_phases = -(-odo.max_iterations // refresh_every)
-    run = ((last_corner.count() > odo.min_corner_points)
-           & (last_surf.count() > odo.min_surface_points))
+    tf, mat_p, degenerate, done = carry
+    x_c = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
+    x_s = lm.transform_to_start(flat.xyz, flat.rel, tf)
+    cm = corner_correspondences_fused(x_c, sharp.mask, last_corner,
+                                      odo.ring_bracket)
+    sm = surf_correspondences_fused(x_s, flat.mask, last_surf,
+                                    odo.ring_bracket)
+    for j in range(refresh_every):
+        it = phase * refresh_every + j
+        if it >= odo.max_iterations:
+            break
+        x_c_j = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
+        x_s_j = lm.transform_to_start(flat.xyz, flat.rel, tf)
+        tf_new, mat_p_new, degen_new, done_step = _gn_iteration(
+            tf, it, mat_p, degenerate, x_c_j, x_s_j, sharp, flat,
+            last_corner, last_surf, cm.j, cm.l, cm.valid,
+            sm.j, sm.l, sm.m, sm.valid, odo,
+            compute_projector=(it == 0))
+        active = ~done
+        tf = torch.where(active, tf_new, tf)
+        mat_p = torch.where(active, mat_p_new, mat_p)
+        degenerate = torch.where(active, degen_new, degenerate)
+        done = done | (active & done_step)
+    return GnCarry(tf, mat_p, degenerate, done)
 
-    tf = tf0
-    mat_p = torch.eye(6, dtype=torch.float32, device=tf0.device)
-    degenerate = torch.zeros((), dtype=torch.bool, device=tf0.device)
-    done = torch.zeros((), dtype=torch.bool, device=tf0.device)
-    for phase in range(n_phases):
-        x_c = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
-        x_s = lm.transform_to_start(flat.xyz, flat.rel, tf)
-        cm = corner_correspondences_fused(x_c, sharp.mask, last_corner,
-                                          odo.ring_bracket)
-        sm = surf_correspondences_fused(x_s, flat.mask, last_surf,
-                                        odo.ring_bracket)
-        for j in range(refresh_every):
-            it = phase * refresh_every + j
-            if it >= odo.max_iterations:
-                break
-            x_c_j = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
-            x_s_j = lm.transform_to_start(flat.xyz, flat.rel, tf)
-            tf_new, mat_p_new, degen_new, done_step = _gn_iteration(
-                tf, it, mat_p, degenerate, x_c_j, x_s_j, sharp, flat,
-                last_corner, last_surf, cm.j, cm.l, cm.valid,
-                sm.j, sm.l, sm.m, sm.valid, odo,
-                compute_projector=(it == 0))
-            active = run & ~done
-            tf = torch.where(active, tf_new, tf)
-            mat_p = torch.where(active, mat_p_new, mat_p)
-            degenerate = torch.where(active, degen_new, degenerate)
-            done = done | (active & done_step)
-    return tf
+
+def run_gn_static(sharp: PointSet, flat: PointSet, last_corner: PointSet,
+                  last_surf: PointSet, tf0: Tensor, cfg: LoamConfig) -> Tensor:
+    """The fixed-phase GN: ceil(max_iterations / refresh_every) phases
+    (``gn_phase``), early abort as masked freezing. Returns the refined
+    transform."""
+    odo = cfg.odometry
+    carry = gn_start(tf0, _runs(last_corner, last_surf, odo))
+    for phase in range(n_phases(odo.max_iterations, odo.corresp_refresh_every)):
+        carry = gn_phase(carry, phase, sharp, flat, last_corner, last_surf, cfg)
+    return carry.tf
 
 
 def run_gauss_newton(sharp: PointSet, flat: PointSet, last_corner: PointSet,
@@ -241,9 +290,7 @@ def run_gauss_newton(sharp: PointSet, flat: PointSet, last_corner: PointSet,
     if static_schedule:
         return run_gn_static(sharp, flat, last_corner, last_surf, tf0, cfg)
     odo = cfg.odometry
-    run = ((last_corner.count() > odo.min_corner_points)
-           & (last_surf.count() > odo.min_surface_points))
-    if not bool(run):
+    if not bool(_runs(last_corner, last_surf, odo)):
         return tf0
     tf = tf0
     mat_p = torch.eye(6, dtype=torch.float32, device=tf0.device)
@@ -273,34 +320,46 @@ def _transform_to_end_cloud(ps: PointSet, tf: Tensor,
                     mask=ps.mask)
 
 
-def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
-         initialized: bool, imu: ImuSweepState | None = None,
-         static_schedule: bool = True
-         ) -> Tuple[OdometryState, OdometryOutputs]:
-    """One sweep of odometry. ``initialized`` is the host's copy of
-    ``state.initialized``: False on the first sweep of a sequence.
-    ``imu``: this sweep's IMU summary (zero without one)."""
-    if imu is None:
-        imu = ImuSweepState.zero(state.transform.device)
-    odo = cfg.odometry
-    if not initialized:
-        ts = state.transform_sum.clone()
-        ts[0] += imu.start_rpy[1]
-        ts[2] += imu.start_rpy[0]
-        new_state = OdometryState(
-            last_corner=feats.less_sharp, last_surf=feats.less_flat,
-            transform=state.transform, transform_sum=ts,
-            initialized=torch.ones_like(state.initialized),
-            frame=state.frame + 1)
-        return new_state, OdometryOutputs(transform_sum=ts,
-                                          corner_cloud=feats.less_sharp,
-                                          surf_cloud=feats.less_flat)
+def first_sweep(state: OdometryState, feats: SweepFeatures,
+                imu: ImuSweepState) -> Tuple[OdometryState, OdometryOutputs]:
+    """The step of a sequence's first sweep: no GN; the clouds are kept
+    for the next sweep and the IMU's pitch / roll seed the pose."""
+    ts = state.transform_sum.clone()
+    ts[0] += imu.start_rpy[1]
+    ts[2] += imu.start_rpy[0]
+    new_state = OdometryState(
+        last_corner=feats.less_sharp, last_surf=feats.less_flat,
+        transform=state.transform, transform_sum=ts,
+        initialized=torch.ones_like(state.initialized),
+        frame=state.frame + 1)
+    return new_state, OdometryOutputs(transform_sum=ts,
+                                      corner_cloud=feats.less_sharp,
+                                      surf_cloud=feats.less_flat)
 
+
+def initial_transform(state: OdometryState, imu: ImuSweepState,
+                      cfg: LoamConfig) -> Tensor:
+    """The GN's start: the last sweep's motion less the IMU's velocity
+    term."""
     tf0 = state.transform.clone()
     tf0[3:] += -imu.velo_from_start * cfg.registration.scan_period
-    tf = run_gauss_newton(feats.sharp, feats.flat, state.last_corner,
-                          state.last_surf, tf0, cfg, static_schedule)
+    return tf0
 
+
+def gn_begin(state: OdometryState, imu: ImuSweepState,
+             cfg: LoamConfig) -> GnCarry:
+    """The GN's carry before its first phase, stopped when either
+    previous cloud is too small."""
+    return gn_start(initial_transform(state, imu, cfg),
+                    _runs(state.last_corner, state.last_surf, cfg.odometry))
+
+
+def finish(state: OdometryState, feats: SweepFeatures, tf: Tensor,
+           imu: ImuSweepState, cfg: LoamConfig
+           ) -> Tuple[OdometryState, OdometryOutputs]:
+    """After the GN: the pose accumulated with the sweep's motion ``tf``
+    and the IMU terms, and the clouds moved to the sweep end."""
+    odo = cfg.odometry
     neg_rot = torch.stack([-tf[0], -tf[1] * odo.rot_y_fudge, -tf[2]])
     rot = lm.accumulate_rotation(state.transform_sum[lm.ROT], neg_rot)
     v = torch.stack([tf[3] - imu.shift_from_start[0],
@@ -323,3 +382,20 @@ def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
     return new_state, OdometryOutputs(transform_sum=transform_sum,
                                       corner_cloud=corner_end,
                                       surf_cloud=surf_end)
+
+
+def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
+         initialized: bool, imu: ImuSweepState | None = None,
+         static_schedule: bool = True
+         ) -> Tuple[OdometryState, OdometryOutputs]:
+    """One sweep of odometry. ``initialized`` is the host's copy of
+    ``state.initialized``: False on the first sweep of a sequence.
+    ``imu``: this sweep's IMU summary (zero without one)."""
+    if imu is None:
+        imu = ImuSweepState.zero(state.transform.device)
+    if not initialized:
+        return first_sweep(state, feats, imu)
+    tf0 = initial_transform(state, imu, cfg)
+    tf = run_gauss_newton(feats.sharp, feats.flat, state.last_corner,
+                          state.last_surf, tf0, cfg, static_schedule)
+    return finish(state, feats, tf, imu, cfg)

@@ -6,7 +6,7 @@ driver whose IMU tracker holds the rocking stream of
 by ``imu_driver`` for both) through ``LoamDriver.process_sweep`` on the
 card and on the CPU for ``--before`` sweeps, saves the card's engine
 state, loads it into a driver on the card and one on the CPU, and steps
-the next sweep on both. The card's step records every call of the
+the next sweep on both, every sweep with the eager step (``eager_steps``). The card's step records every call of the
 functions in ``TRACED`` (arguments and outputs, copied to the host);
 each is then replayed on the CPU with the card's inputs. A function
 whose replay differs by more than rounding is where a split is born:
@@ -27,6 +27,7 @@ at the repository root) and prints a summary. Runs on the card unless
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -201,6 +202,25 @@ def fit_rows(label: str, args, got, want) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def eager_steps():
+    """Inside the block every ``Engine`` steps its sweeps with the eager
+    step (the module function ``engine.step``, the plain reference) on
+    every device, so a recorder of Python calls sees each call: on the
+    card ``Engine.step`` replays CUDA graphs, which run without Python."""
+    graphed = engine_mod.Engine._per_sweep
+
+    def eager(engine, raw, imu_window):
+        return engine_mod.step(engine.state, raw, engine.cfg, "auto",
+                               engine.cadence, imu_window)
+
+    engine_mod.Engine._per_sweep = eager
+    try:
+        yield
+    finally:
+        engine_mod.Engine._per_sweep = graphed
+
+
 def imu_driver(cfg, device, stream_sweeps: int = STREAM_SWEEPS,
                **kw) -> LoamDriver:
     """chip_smoke's live IMU driver: a ``LoamDriver`` (no system delay)
@@ -234,6 +254,11 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     dev = engine_mod.require_device(args.device)
     cfg = LoamConfig.preset("VLP-16")
+    with eager_steps():
+        return _split(args, cfg, dev)
+
+
+def _split(args, cfg, dev) -> int:
     n = args.before + 1
     xyz, mask, _ = synthetic.bench_sequence(n, cfg.lidar, SWEEP_CAP)
     sweeps = [xyz[i][mask[i]] for i in range(n)]

@@ -25,14 +25,28 @@ the aggregate sweeps/s over all lanes; then the single stream on the
 same sweeps after the same warm-up, so that the two counts of device
 operations come from one process.
 
+With ``--per-sweep`` it profiles the per-sweep path, which replays the
+per-sweep graphs on the card (``models/engine.py::step_graphed``): the
+bench's single stream and live line (its functions, at its sized
+configuration, 48 sweeps), graphed, then eagerly (the plain reference,
+``device_split.eager_steps``) in the same process; then at the
+datasheet preset one chunk of the dynamic cadence as the warm-up (it
+captures the graphs), the stages of the next two sweeps (each
+segment's replays timed between syncs, by segment), and the chunk after
+the warm-up without and with the profiler: ms a sweep, device
+operations, busy share, host syncs, graph launches, stop-flag reads and
+graph replays a sweep.
+
 Prints one JSON object as its last line of output.
 
-    python3 -m loam_velodyne_torch.tools.profile_step [--lanes 8]
+    python3 -m loam_velodyne_torch.tools.profile_step [--lanes 8 | --per-sweep]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import time
@@ -40,6 +54,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from loam_velodyne_torch import bench
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.models import engine as engine_mod
@@ -48,9 +63,12 @@ from loam_velodyne_torch.models import odometry as odometry_mod
 from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import extract_features
 from loam_velodyne_torch.parallel import replay
+from loam_velodyne_torch.tools import device_split
 from loam_velodyne_torch.utils import profiling
 
 CHUNK = 8
+# The bench's sequence length (its default).
+BENCH_SWEEPS = 48
 # Sweeps of the profiled batched chunk (a whole chunk of 8 lanes did not
 # finish under the profiler in 15 minutes on an H100).
 LANE_SWEEPS = 2
@@ -238,16 +256,107 @@ def run_lanes(dev: torch.device, cfg: LoamConfig, cap: int, trace_dir: str,
     return {"batched_chunk": out, "single_stream_same_sweeps": one}
 
 
+def bench_rates(dev: torch.device) -> dict:
+    """The bench's single stream and live line, graphed and then eager in
+    this process, on the bench's sequence at its sized configuration;
+    the graphed run's first seconds include the captures, outside its
+    timed windows."""
+    sweeps, gt = synthetic.bench_sweeps(BENCH_SWEEPS, LoamConfig.preset(
+        "VLP-16").lidar)
+    cfg, cap = bench.sized(LoamConfig.preset("VLP-16"), sweeps)
+    out = {}
+    for mode, ctx in (("graphed", contextlib.nullcontext()),
+                      ("eager", device_split.eager_steps())):
+        t0 = time.perf_counter()
+        with ctx:
+            rate, ate, tel = bench.bench_single_stream(cfg, sweeps, gt, CHUNK,
+                                                       cap, dev)
+            p50, p_max, attribution = bench.bench_live_latency(
+                cfg, sweeps, cap=cap, device=dev)
+        out[mode] = {"single_stream_sweeps_per_sec": rate, "ate_m": ate,
+                     "telemetry": tel, "live_p50_ms": p50, "live_max_ms": p_max,
+                     "live_max_attribution": attribution,
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def segment_times(graphs, call) -> dict:
+    """Milliseconds of each segment's replays during ``call()``, by
+    segment name, the card synchronised before and after each replay."""
+    times = collections.defaultdict(float)
+    run = graphs.run
+
+    def timed(key, segment, also=()):
+        engine_mod.sync(graphs.device)
+        t0 = time.perf_counter()
+        run(key, segment, also)
+        engine_mod.sync(graphs.device)
+        times[key[0]] += 1e3 * (time.perf_counter() - t0)
+
+    graphs.run = timed
+    try:
+        call()
+    finally:
+        del graphs.run
+    return dict(times)
+
+
+def run_per_sweep(dev: torch.device, cfg: LoamConfig, cap: int,
+                  trace_dir: str) -> dict:
+    """The per-sweep graphs: the bench's rates graphed against eager,
+    then one warm-up chunk of the dynamic cadence, the segments of the
+    next two sweeps, and the chunk after the warm-up profiled."""
+    out = {"bench": bench_rates(dev)}
+    xyz, mask, _ = synthetic.bench_sequence(2 * CHUNK, cfg.lidar, cap)
+    xyz = torch.from_numpy(xyz).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    engine = engine_mod.Engine(cfg, dev)
+    t0 = time.perf_counter()
+    engine.run_chunk(xyz[:CHUNK], mask[:CHUNK], static_cadence=False)
+    engine_mod.sync(dev)
+    graphs = engine.sweep_graphs
+    out["warmup_chunk_s"] = time.perf_counter() - t0
+    out["graphs"] = {" ".join(map(str, k)): st._asdict()
+                     for k, st in graphs.stats.items()}
+    state0, cadence0 = _clone(engine.state), engine.cadence
+
+    def restore():
+        engine.state, engine.cadence = _clone(state0), cadence0
+
+    stages = {}
+    for i, kind in ((CHUNK, "odometry_only"), (CHUNK + 1, "mapping")):
+        stages[kind] = segment_times(
+            graphs, lambda: engine.step(xyz[i], mask[i]))
+    out["segments_ms"] = stages
+    restore()
+    reads0, replays0 = graphs.flag_reads, graphs.replays
+    keys = set(graphs.stats)
+    out["chunk"] = profile_calls(
+        lambda: engine.run_chunk(xyz[CHUNK:], mask[CHUNK:],
+                                 static_cadence=False),
+        restore, dev, CHUNK, trace_dir)
+    # Two runs of the chunk: the unprofiled and the profiled one.
+    out["chunk"]["flag_reads_per_sweep"] = (graphs.flag_reads - reads0) / (2 * CHUNK)
+    out["chunk"]["graph_replays_per_sweep"] = (graphs.replays - replays0) / (2 * CHUNK)
+    out["chunk"]["captured_inside"] = sorted(map(str, set(graphs.stats) - keys))
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lanes", type=int, default=0,
                     help="profile the batched replay with B lanes")
+    ap.add_argument("--per-sweep", action="store_true",
+                    help="profile the per-sweep path (its CUDA graphs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     result = {"card": engine_mod.card(), "torch": torch.__version__}
     dev, cfg = torch.device("cuda:0"), LoamConfig.preset("VLP-16")
-    if args.lanes:
+    if args.per_sweep:
+        result.update(run_per_sweep(dev, cfg, SWEEP_CAP,
+                                    os.path.join(TRACE_DIR, "per_sweep")))
+    elif args.lanes:
         result.update(run_lanes(dev, cfg, SWEEP_CAP, TRACE_DIR, args.lanes))
     else:
         result.update(run(dev, cfg, SWEEP_CAP, TRACE_DIR))

@@ -37,6 +37,10 @@ from loam_velodyne_torch import bench, cli  # noqa: E402
 from loam_velodyne_torch.config import LoamConfig, apply_overrides  # noqa: E402
 from loam_velodyne_torch.tools import dryrun_dcn  # noqa: E402
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 REFERENCE = os.path.join(HERE, "bench_jax_tiny.npz")

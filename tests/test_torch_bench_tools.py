@@ -16,6 +16,10 @@ from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.tools import (bench_batched_ab, bench_one, dryrun_dcn,
                                        oracle_ab, stage_bench)
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 
 def _fields(cfg) -> dict:
     """The config's leaves as dotted paths."""

@@ -55,6 +55,10 @@ from loam_velodyne_torch.io.pcd import read_pcd
 from loam_velodyne_torch.tools import make_validation_pcap as tmk
 from test_torch_engine import _port, _sweeps, slice_config
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 N = 6
 T0 = 1000.0
 _COMPILED = {}

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from loam_velodyne_tpu import config as jconfig
 from loam_velodyne_tpu.eval import metrics as jmetrics
@@ -20,6 +21,10 @@ from loam_velodyne_tpu.parallel.replay import tiny_config
 from loam_velodyne_torch import config as tconfig
 from loam_velodyne_torch.eval import metrics as tmetrics
 from loam_velodyne_torch.io import synthetic as tsyn
+
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
 
 CLASSES = ["LidarConfig", "RegistrationConfig", "OdometryConfig",
            "MappingConfig", "Capacities", "LoamConfig"]

@@ -7,9 +7,15 @@ the tool's ``imu_driver`` and the same stream length."""
 
 import json
 
+import torch
+
 import chip_smoke
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.tools import device_split
+
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
 
 
 def test_device_split_rehearsal_on_the_cpu(tmp_path):

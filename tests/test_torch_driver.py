@@ -58,6 +58,10 @@ from loam_velodyne_torch.utils.convert import engine_state_from_numpy, to_numpy
 from test_torch_engine import _port, _sweeps, slice_config
 from test_torch_imu import trackers
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 N = 8
 CKPT_AT = 4
 

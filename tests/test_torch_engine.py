@@ -39,6 +39,10 @@ from loam_velodyne_torch.utils import math as tlm
 from loam_velodyne_torch.utils.convert import (engine_state_from_numpy,
                                                engine_state_to_numpy)
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 N_SWEEPS = 8
 
 

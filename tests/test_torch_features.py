@@ -34,6 +34,10 @@ from loam_velodyne_torch.ops import greedy_kernel
 from loam_velodyne_torch.ops import voxel as tvox
 from loam_velodyne_torch.types import PointSet, RingGrid
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 REG = RegistrationConfig()
 
 

@@ -44,6 +44,10 @@ from loam_velodyne_torch.ops.imu import ImuWindow
 from loam_velodyne_torch.ops.scan import RawSweep
 from loam_velodyne_torch.parallel import replay
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 K, B = 4, 2
 CAP = 256
 

@@ -53,6 +53,10 @@ from loam_velodyne_torch.utils.convert import state_from_numpy
 from test_torch_engine import _port, _sweeps, slice_config
 from test_torch_mapping import map_config
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from loam_velodyne_tpu.io import kitti as jkitti
 from loam_velodyne_tpu.io import lz4f as jlz4f
@@ -35,6 +36,10 @@ from loam_velodyne_torch.io import pcd as tpcd
 from loam_velodyne_torch.io import rosbag as tbag
 from loam_velodyne_torch.io import synthetic as tsyn
 from loam_velodyne_torch.tools import make_validation_pcap as tmk
+
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
 
 BAG = {"jax": jbag, "port": tbag}
 PCAP = {"jax": jpcap, "port": tpcap}

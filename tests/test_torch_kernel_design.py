@@ -37,6 +37,10 @@ from loam_velodyne_torch.ops.knn_kernel import grouped_window_knn_plain
 from test_torch_kernels_cuda import GREEDY_CASES, greedy_case
 from test_torch_odometry import CASES, _case
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 INF = float("inf")
 # The kernel's "no candidate" key is the unsigned all-ones word, above
 # every real key. A real key has the sign bit of d >= +0 clear, so the

@@ -6,6 +6,10 @@ import torch
 from loam_velodyne_torch.ops import greedy_kernel
 from loam_velodyne_torch.tools import kernel_times
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 
 def test_greedy_bound_reads_curv_at_candidates_and_extents_at_picks():
     # One row of 8 columns. Step 0 picks column 3 (marks 2..4); step 1

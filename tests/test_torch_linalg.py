@@ -44,6 +44,10 @@ from loam_velodyne_torch.models import odometry as todo
 from loam_velodyne_torch.parallel.replay import no_vmap_fallback
 from loam_velodyne_torch.utils import linalg as tlinalg
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 THRESHOLD = 10.0
 
 

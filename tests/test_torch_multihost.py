@@ -40,6 +40,10 @@ from loam_velodyne_torch.parallel import multihost
 from loam_velodyne_torch.parallel import replay as treplay
 from loam_velodyne_torch.tools import dryrun_dcn
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 REFERENCE = os.path.join(HERE, "multihost_jax.npz")

@@ -39,6 +39,10 @@ from loam_velodyne_torch.ops import neighbors as tnb
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils.convert import state_from_numpy
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -17,11 +17,16 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from loam_velodyne_tpu.config import HDL32, HDL64E
 from loam_velodyne_tpu.io.driver import LoamDriver as JDriver
 from loam_velodyne_torch.io.driver import LoamDriver as TDriver
 from test_torch_engine import _port, _sweeps, slice_config
+
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
 
 N = 4
 N_AZIMUTH = 600

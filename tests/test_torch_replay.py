@@ -71,6 +71,10 @@ from loam_velodyne_torch.parallel import replay as treplay  # noqa: E402
 from test_torch_engine import _port, slice_config  # noqa: E402
 from test_torch_imu import trackers  # noqa: E402
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 B, K = 2, 8
 SPEEDS = (1.0, 0.6)
 GAINS = (1.0, 0.5)

@@ -32,6 +32,10 @@ from loam_velodyne_torch.ops.scan import RawSweep as TRaw
 from loam_velodyne_torch.parallel import replay as treplay
 from test_torch_engine import _port, _sweeps, slice_config
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 N = 8
 EMPTY = 3
 

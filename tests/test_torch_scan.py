@@ -22,6 +22,10 @@ from loam_velodyne_tpu.ops.pallas_grid import grid_windows as pallas_grid_window
 from loam_velodyne_torch.ops import grid_kernel
 from loam_velodyne_torch.ops import scan as tscan
 
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
+
 REG = RegistrationConfig()
 
 

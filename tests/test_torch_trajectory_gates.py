@@ -45,6 +45,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+# One intra-op thread: the tier-1 run has six workers on eight cores,
+# and torch's default of a thread a core oversubscribes them.
+torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden_trajectory.npz")
