@@ -75,14 +75,20 @@ static chunk as CUDA graphs of one group of io_ratio sweeps, through
 the entry points a user calls, with the launch counts set to 0 before
 each run and read after it. ``Engine.run_chunk`` replays the 48-sweep
 bench sequence from a fresh state: every packed column bit-equal to
-the eager replay above, the same launches, ATE and zero telemetry;
+the eager replay above, ATE and zero telemetry;
 ``make_batched_chunk``'s callable runs the batched phase's 8 distinct
-lanes, each bit-equal to the eager batched run. The last chunk of each
-runs under ``torch.cuda.set_sync_debug_mode("error")``. It prints each
-graph's warm-up, capture and instantiation seconds, nodes and pool
-memory, the batched run's peak memory, and the sweeps/s graphed beside
-eager on the same sweeps. Every earlier and later phase runs the eager
-chunk (the module function ``engine.run_chunk``,
+lanes, each bit-equal to the eager batched run. The graphs skip on the
+card the GN phases and iterations after the stop (conditional nodes,
+``models/conditional.py``; on every lane in the batched form), which
+the eager runs compute masked: each graphed run's launches, counted on
+the card (``ops/launches.py``), are the eager run's launches whose
+regions' predicates all held there (``launches.needed``), K3's and
+K4's fewer than the eager run's. The last chunk of each runs under
+``torch.cuda.set_sync_debug_mode("error")``. It prints each graph's
+warm-up, capture and instantiation seconds, nodes, conditional nodes
+and pool memory, the batched run's peak memory, and the sweeps/s
+graphed beside eager on the same sweeps. Every earlier and later phase
+runs the eager chunk (the module function ``engine.run_chunk``,
 ``make_eager_batched_chunk``; the bench phase with
 ``make_batched_chunk`` returning the eager chunk), so that its
 recorders see every kernel call, and holds each call to its plain twin
@@ -91,24 +97,31 @@ this process's eager lanes.
 
 Then the per-sweep graphs (``run_sweep_graphs``,
 ``models/engine.py::step_graphed``): the dynamic per-sweep step
-replayed as CUDA graphs of its segments and GN phases, one stop flag
-read before each phase, under ``LoamDriver.run_live`` on the per-sweep
-phase's 24 bench sweeps: with that phase's IMU input against its eager
-live run, and without the IMU against an eager run of the same sweeps,
-every packed column bit-equal and the launches equal, no key captured
-inside a run (a throwaway driver's first two sweeps capture them). It
-prints each run's sweeps/s and p50 / max beside the eager run's, the
-stop-flag reads a sweep, and each graph's set-up, nodes and pool
-bytes. The per-sweep, entry-point, trajectory-gate, oracle and bench
-phases step the eager path (``device_split.eager_steps``): on the card
+replayed as CUDA graphs of its segments, each GN's phases and
+iterations conditional nodes decided on the card (no stop flag read),
+under ``LoamDriver.run_live`` on the per-sweep phase's 24 bench sweeps:
+with that phase's IMU input against its eager live run, and without
+the IMU against an eager run of the same sweeps, every packed column
+bit-equal and the launches equal, no key captured inside a run (a
+throwaway driver's first two sweeps capture them), conditional nodes in
+both GN keys. It prints each run's sweeps/s and p50 / max beside the
+eager run's, the graph replays and kernel launches a sweep, the host's
+syncs a graphed sweep (a short run under the profiler: the driver's one
+packed-row read a sweep, and no other synchronizing call a sweep), and
+each graph's
+set-up, nodes, conditional nodes and pool bytes. The per-sweep,
+entry-point, trajectory-gate, oracle and bench phases step the eager
+path (``device_split.eager_steps``): on the card
 ``Engine.step`` replays these graphs, which run without Python, and
 those phases count or record the kernel calls.
 
 Then three phases. The multi-process replay (``run_multiprocess``,
 ``parallel/multihost.py`` through ``tools/dryrun_dcn.py``): two fresh
 processes share the card over gloo, two lanes each, and gather all four
-lanes' trajectories; each worker's lane-form launches are exact, the
-gathered arrays equal, lane 0 of both ranks bit-equal, and every lane
+lanes' trajectories; each worker's lane-form launches, counted on the
+card, are exact (those this process's eager run of its lanes needed,
+``launches.needed``), the gathered arrays equal, lane 0 of both ranks
+bit-equal, and every lane
 bit-equal to this process's own B = 2 run of the same lanes, with ATE
 and loss-counter gates. The sized replay (``run_sized``): the bench
 sequence at ``LoamConfig.sized_for_stream`` of its stream's padding
@@ -176,6 +189,7 @@ from loam_velodyne_torch.models.engine import card as engine_card
 from loam_velodyne_torch.ops import (corresp_kernel, cuda_lib, features,
                                      greedy_kernel, grid_kernel, knn_kernel,
                                      neighbors, scan, voxel)
+from loam_velodyne_torch.ops import launches as launch_counts
 from loam_velodyne_torch.ops.scan import RawSweep
 from loam_velodyne_torch.parallel import replay as replay_mod
 from loam_velodyne_torch.tools import (device_split, dryrun_dcn, kernel_times,
@@ -247,7 +261,14 @@ LANE_PREFIX_SWEEPS = 3
 LANE_PREFIX_TOL = 1e-6
 LANE_TOL = 0.03
 # The graph phase's batched depth (the batched phase's, LANE_SWEEPS).
-GRAPH_LANE_SWEEPS = 24
+GRAPH_LANE_SWEEPS = LANE_SWEEPS
+# Sweeps of the per-sweep graph phase's profiled run (its host syncs):
+# enough that a synchronizing call made once in the run (set-up) tells
+# apart from one made each sweep.
+SYNC_SWEEPS = 8
+# The driver's read of a graphed sweep's packed row: the one
+# synchronizing call a sweep that run_live makes.
+ROW_READ_SYNC = "cudaEventSynchronize"
 # The golden (tests/test_golden.py: the JAX driver, 6 VLP-16 sweeps; its
 # 2e-3 gates the sweeps before the second mapping frame, from which the
 # JAX package itself no longer meets it on the CPU, see
@@ -565,12 +586,23 @@ WRAPPERS = {"grid_windows": grid_kernel.grid_windows,
 
 
 def _zero_launches() -> None:
+    launch_counts.settle()
     for fn in WRAPPERS.values():
         fn.launches = 0
 
 
 def _read_launches() -> dict:
+    """The wrappers' launch counts, the graphs' settled from the card's
+    counters first (one read)."""
+    launch_counts.settle()
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def _needed(tally) -> dict:
+    """A ``launch_counts.needed`` block's tally, by every wrapper: the
+    launches a graphed run of the block's work makes."""
+    got = tally()
+    return {name: got.get(name, 0) for name in WRAPPERS}
 
 
 # Call sites of the four wrappers in the pipeline: (module, name).
@@ -608,11 +640,14 @@ def _recording_calls(*names):
             setattr(mod, attr, WRAPPERS[name])
 
 
-def run_engine(dev, card: str) -> tuple[dict, list, np.ndarray, list, float]:
+def run_engine(dev, card: str
+               ) -> tuple[dict, list, np.ndarray, list, float, dict]:
     """Replay the benchmark sequence through the port's engine. Returns
     the kernels' launch counts, K2's calls (their arguments), which the
     replay records on the way to the wrapper, the packed rows, each
-    chunk's ms per sweep and the sweeps/s after the first chunk."""
+    chunk's ms per sweep, the sweeps/s after the first chunk, and the
+    launches the CUDA graphs of the same replay make
+    (``launch_counts.needed``)."""
     cfg = LoamConfig.preset("VLP-16")
     xyz, mask, gt = synthetic.bench_sequence(N_SWEEPS, cfg.lidar, SWEEP_CAP)
     xyz_d = torch.from_numpy(xyz).to(dev)
@@ -621,13 +656,17 @@ def run_engine(dev, card: str) -> tuple[dict, list, np.ndarray, list, float]:
     torch.cuda.synchronize()
     _zero_launches()
     t0 = time.perf_counter()
-    with _recording_calls("greedy_pick_rows") as calls:
+    with _recording_calls("greedy_pick_rows") as calls, \
+            launch_counts.needed() as needed:
         packed, ends = replay(engine, xyz_d, mask_d)
     greedy_calls = [args for args, _ in calls["greedy_pick_rows"]]
     t_first, t_end = ends[0], ends[-1]
     chunk_ms = [1e3 * (b - a) / CHUNK for a, b in zip([t0] + ends, ends)]
     launches = _read_launches()
-    print(f"engine kernel launches: {json.dumps(launches)}", flush=True)
+    needed = _needed(needed)
+    print(f"engine kernel launches: {json.dumps(launches)}; of them in GN "
+          f"regions whose predicates held (the graphs run these): "
+          f"{json.dumps(needed)}", flush=True)
     if launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{EXPECTED_LAUNCHES}")
@@ -650,7 +689,7 @@ def run_engine(dev, card: str) -> tuple[dict, list, np.ndarray, list, float]:
           f"{[round(v, 2) for v in chunk_ms]}", flush=True)
     if not ate <= ATE_GATE_M:
         raise AssertionError(f"ATE {ate:.4f} m above the {ATE_GATE_M} m gate")
-    return launches, greedy_calls, packed, chunk_ms, steady_rate
+    return launches, greedy_calls, packed, chunk_ms, steady_rate, needed
 
 
 # The lane forms' custom ops (each module's ``lane_op``), by lane form;
@@ -798,7 +837,8 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     of (b) is recorded and, after the counts are read, held to its
     plain twin. All readings are printed before any gate is applied.
     Every run is the eager batched chunk. Returns the phase's numbers
-    and the distinct run's (xyz, mask, packed rows, chunk seconds)."""
+    and the distinct run's (xyz, mask, packed rows, chunk seconds, the
+    launches a graphed run of it makes, ``launch_counts.needed``)."""
     t_phase = time.perf_counter()
     cfg = LoamConfig.preset("VLP-16")
     xyz, mask, _ = synthetic.bench_sequence(LANE_SWEEPS, cfg.lidar, SWEEP_CAP)
@@ -876,9 +916,11 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     mask_b = torch.from_numpy(np.stack([q[1] for q in seqs])).to(dev)
     sync(dev)
     _zero_launches()
-    with _recording_lane_calls() as calls:
+    with _recording_lane_calls() as calls, \
+            launch_counts.needed() as needed:
         packed, secs = _batched_replay(cfg, xyz_b, mask_b)
     out["distinct_launches"] = _lane_launches(expected)
+    distinct_needed = _needed(needed)
     if not np.isfinite(packed).all():
         raise AssertionError("distinct lanes: outputs not finite")
     ates = [ate_rmse(packed[i, :, 15:18], seqs[i][2], align=True)
@@ -917,12 +959,12 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     print(f"batched: the phase took {out['seconds']:.1f} s", flush=True)
     if failures:
         raise AssertionError("batched phase: " + "; ".join(failures))
-    return out, (xyz_b, mask_b, packed, secs)
+    return out, (xyz_b, mask_b, packed, secs, distinct_needed)
 
 
 def _graph_stats(graphs, label: str, card: str) -> list:
     """Each captured graph's warm-up, capture and instantiation seconds,
-    nodes, the shared pool's bytes and launches a replay, printed."""
+    nodes, conditional nodes and the shared pool's bytes, printed."""
     rows = []
     for (_, shape, imu, branch), st in graphs.stats.items():
         first = not branch[0][0]
@@ -931,27 +973,33 @@ def _graph_stats(graphs, label: str, card: str) -> list:
         print(f"graph {label}, {'first' if first else 'steady'} group of "
               f"{list(shape)}: warm-up {st.warmup_s:.2f} s, capture "
               f"{st.capture_s:.2f} s, instantiation {st.instantiate_s:.2f} s, "
-              f"{st.nodes} nodes, the shared pool {st.pool_bytes / 2**20:.1f} "
-              f"MiB after it; launches a replay {json.dumps(st.launches)}; "
+              f"{st.nodes} nodes ({st.conditional_nodes} conditional nodes), "
+              f"the shared pools {st.pool_bytes / 2**20:.1f} MiB after it; "
               f"card: {card}", flush=True)
     return rows
 
 
 def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
-              distinct: tuple, identical_rate: float) -> tuple[dict, dict]:
+              replay_needed: dict, distinct: tuple, identical_rate: float
+              ) -> tuple[dict, dict]:
     """The compiled chunk (``models/graph.py``): the static chunk replayed
     as CUDA graphs of one group of io_ratio sweeps, through the entry
     points a user calls, each run with the launch counts set to 0 before
     and read after. (1) ``Engine.run_chunk`` over the 48-sweep bench
     sequence from a fresh state: every packed column bit-equal to the
     eager replay of ``run_engine`` (``replay_packed``), the launches
-    EXPECTED_LAUNCHES, ATE and zero telemetry; (2) ``make_batched_chunk``'s
-    callable over the batched phase's LANES distinct lanes
-    (``distinct``: their sweeps, the eager run's rows and chunk seconds),
-    its first GRAPH_LANE_SWEEPS sweeps bit-equal to the eager lanes, the
-    launches exact; its rate beside the eager distinct run's (recorded,
-    so slowed by the recorder's clones) and the eager identical lanes'
-    (``identical_rate``, unrecorded). The last chunk of each runs under
+    ATE and zero telemetry; (2) ``make_batched_chunk``'s callable over
+    the batched phase's LANES distinct lanes (``distinct``: their sweeps,
+    the eager run's rows, chunk seconds and needed launches), its first
+    GRAPH_LANE_SWEEPS sweeps bit-equal to the eager lanes; its rate
+    beside the eager distinct run's (recorded, so slowed by the
+    recorder's clones) and the eager identical lanes' (``identical_rate``,
+    unrecorded). The eager runs run every GN phase (EXPECTED_LAUNCHES);
+    the graphs skip, on the card, the phases and iterations after a GN's
+    stop (on every lane): each run's launches, counted on the card, are
+    those the eager run needed (``replay_needed``, the distinct run's:
+    its launches whose regions' predicates all held), K3's and K4's
+    fewer than the eager run's. The last chunk of each runs under
     ``torch.cuda.set_sync_debug_mode("error")``. Prints each graph's
     capture and instantiation seconds, nodes and pool memory, the
     batched run's peak memory, and the sweeps/s graphed against eager on
@@ -984,8 +1032,11 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
     print(f"graph single stream: {N_SWEEPS} sweeps through Engine.run_chunk "
           f"(CUDA graphs), the last chunk under sync debug mode 'error'; "
           f"columns differing from the eager replay: {differ} (of 29); "
-          f"launches {json.dumps(single_launches)}; ATE {ate * 100:.3f} cm "
-          f"(eager {ate_eager * 100:.3f} cm), telemetry {telemetry}", flush=True)
+          f"launches {json.dumps(single_launches)} (counted on the card; "
+          f"expected {json.dumps(replay_needed)}; eager "
+          f"{json.dumps(EXPECTED_LAUNCHES)}); "
+          f"ATE {ate * 100:.3f} cm (eager {ate_eager * 100:.3f} cm), telemetry "
+          f"{telemetry}", flush=True)
     print(f"graph single stream: sweeps {CHUNK}-{N_SWEEPS - 1}: {rate:.3f} "
           f"sweeps/s graphed ({1e3 / rate:.2f} ms a sweep; by chunk "
           f"{[round(v, 2) for v in chunk_ms]} ms a sweep, the first with its "
@@ -993,15 +1044,20 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
           f"sweeps in this process: {rate / rate_eager:.2f}x; card: {card}",
           flush=True)
     single_stats = _graph_stats(engine.graphs, "single stream", card)
-    if differ or single_launches != EXPECTED_LAUNCHES:
+    if (differ or single_launches != replay_needed
+            or not all(single_launches[k] < EXPECTED_LAUNCHES[k]
+                       for k in ("corresp_search", "grouped_window_knn"))):
         failures.append(f"single stream: columns {differ} differ, launches "
-                        f"{single_launches}")
+                        f"{single_launches}, expected {replay_needed}")
     if not ate <= ATE_GATE_M or any(telemetry):
         failures.append(f"single stream: ATE {ate}, telemetry {telemetry}")
 
     # (2) The batched chunk, LANES distinct lanes.
-    xyz_b, mask_b, eager_packed, eager_secs = distinct
+    xyz_b, mask_b, eager_packed, eager_secs, eager_needed = distinct
     n = GRAPH_LANE_SWEEPS
+    if n != LANE_SWEEPS:
+        raise AssertionError("the distinct run's needed launches cover "
+                             f"{LANE_SWEEPS} sweeps, not {n}")
     chunk = replay_mod.make_batched_chunk(cfg)
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1009,6 +1065,7 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
     packed_b, secs = _batched_replay(cfg, xyz_b[:, :n], mask_b[:, :n],
                                      no_sync_from=n // CHUNK - 1, chunk=chunk)
     batched_launches = _read_launches()
+    eager_b = _expected_launches(n)
     peak = torch.cuda.max_memory_allocated(dev)
     lanes_equal = [bool(np.array_equal(packed_b[i], eager_packed[i, :n]))
                    for i in range(LANES)]
@@ -1017,8 +1074,10 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
     print(f"graph batched: {LANES} distinct lanes x {n} sweeps through "
           f"make_batched_chunk (CUDA graphs), the last chunk under sync debug "
           f"mode 'error'; each lane bit-equal to the eager batched run: "
-          f"{lanes_equal}; launches {json.dumps(batched_launches)}; peak "
-          f"memory {peak / 2**30:.2f} GiB", flush=True)
+          f"{lanes_equal}; launches {json.dumps(batched_launches)} (counted "
+          f"on the card; expected {json.dumps(eager_needed)}; eager "
+          f"{json.dumps(eager_b)}); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
     print(f"graph batched: sweeps {CHUNK}-{n - 1}: {rate_b:.3f} sweeps/s over "
           f"all {LANES} lanes graphed (by chunk "
           f"{[round(LANES * CHUNK / x, 3) for x in secs[1:]]}; "
@@ -1029,17 +1088,21 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
           f"(unrecorded) {identical_rate:.3f}: "
           f"{rate_b / identical_rate:.2f}x; card: {card}", flush=True)
     batched_stats = _graph_stats(chunk.graphs, f"batched B = {LANES}", card)
-    if not all(lanes_equal) or batched_launches != _expected_launches(n):
+    if (not all(lanes_equal) or batched_launches != eager_needed
+            or not all(batched_launches[k] < eager_b[k]
+                       for k in ("corresp_search", "grouped_window_knn"))):
         failures.append(f"batched: lanes equal {lanes_equal}, launches "
-                        f"{batched_launches}, expected {_expected_launches(n)}")
+                        f"{batched_launches}, expected {eager_needed}")
     out = {"single": {"columns_differing": differ, "ate_m": ate,
                       "ate_eager_m": ate_eager, "telemetry": telemetry,
                       "launches": single_launches,
+                      "eager_launches": EXPECTED_LAUNCHES,
                       "ms_per_sweep_by_chunk": chunk_ms,
                       "sweeps_per_sec": rate, "eager_sweeps_per_sec": rate_eager,
                       "graphs": single_stats},
            "batched": {"lanes": LANES, "sweeps": n, "lanes_equal": lanes_equal,
-                       "launches": batched_launches, "chunk_s": secs,
+                       "launches": batched_launches, "eager_launches": eager_b,
+                       "chunk_s": secs,
                        "sweeps_per_sec": rate_b,
                        "eager_sweeps_per_sec": rate_b_eager,
                        "eager_identical_sweeps_per_sec": identical_rate,
@@ -1055,17 +1118,31 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
 
 def _sweep_graph_stats(graphs, card: str) -> list:
     """Each per-sweep graph's key, warm-up, capture and instantiation
-    seconds, nodes, the shared pool's bytes after it and launches a
-    replay, printed."""
+    seconds, nodes, conditional nodes and the shared pool's bytes after
+    it, printed."""
     rows = []
     for key, st in graphs.stats.items():
         rows.append({"key": [str(k) for k in key], **st._asdict()})
         print(f"sweep graph {key[0]} {list(key[1:])}: warm-up "
               f"{st.warmup_s:.2f} s, capture {st.capture_s:.2f} s, "
-              f"instantiation {st.instantiate_s:.2f} s, {st.nodes} nodes, the "
-              f"shared pool {st.pool_bytes / 2**20:.1f} MiB after it; launches "
-              f"a replay {json.dumps(st.launches)}; card: {card}", flush=True)
+              f"instantiation {st.instantiate_s:.2f} s, {st.nodes} nodes "
+              f"({st.conditional_nodes} conditional nodes), the shared pools "
+              f"{st.pool_bytes / 2**20:.1f} MiB after it; card: {card}",
+              flush=True)
     return rows
+
+
+def _host_syncs(call, dev) -> dict:
+    """The host's synchronizing CUDA calls during ``call()``, by name
+    (``torch.profiler``, the card traced; the profiler's own syncs at its
+    start and end are not in its rows)."""
+    sync(dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+    return {r.key: r.count for r in prof.key_averages()
+            if "Synchronize" in r.key}
 
 
 def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
@@ -1080,11 +1157,17 @@ def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
     packed rows, launches and latencies). (3) Without the IMU, eagerly
     (``device_split.eager_steps``, the plain reference), then graphed.
     Each graphed run: every packed column bit-equal to the eager one,
-    the same launches (counted from 0 over the run), no key captured.
+    the same launches (counted from 0 over the run, the graphs' on the
+    card), no key captured. The GN's stop is decided on the card
+    (conditional nodes): no stop flag is read. (4) The host's
+    synchronizing calls in a graphed ``run_live`` without the IMU
+    (SYNC_SWEEPS sweeps under ``torch.profiler``, after the timed runs):
+    at most one ROW_READ_SYNC a sweep (the driver's packed row) and no
+    other synchronizing call made each sweep (at most one in the run).
     Prints each run's sweeps/s, p50 / max beside the eager run's, the
-    stop-flag reads a sweep, and each graph's set-up, nodes and pool
-    bytes. Returns the graphed runs' launches by run and the phase's
-    numbers."""
+    graph replays and kernel launches a sweep, the syncs, and each
+    graph's set-up, nodes, conditional nodes and pool bytes. Returns the
+    graphed runs' launches by run and the phase's numbers."""
     t_phase = time.perf_counter()
     sweeps = [xyz[i][mask[i]] for i in range(LIVE_SWEEPS)]
     stamps = [0.1 * k for k in range(LIVE_SWEEPS)]
@@ -1128,7 +1211,7 @@ def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
         rows = _keep_rows(drv)
         sync(dev)
         _zero_launches()
-        reads0, replays0 = graphs.flag_reads, graphs.replays
+        replays0 = graphs.replays
         lat = [1e3 * x for x in drv.run_live(sweeps, st)]
         sync(dev)
         launches[name] = _read_launches()
@@ -1142,8 +1225,9 @@ def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
                "eager_sweeps_per_sec": 1e3 * n / sum(ref[2]),
                "p50_ms": ms[n // 2], "max_ms": ms[-1],
                "eager_p50_ms": ms_eager[n // 2], "eager_max_ms": ms_eager[-1],
-               "flag_reads_per_sweep": (graphs.flag_reads - reads0) / n,
                "replays_per_sweep": (graphs.replays - replays0) / n,
+               "launches_per_sweep": {k: v / n for k, v
+                                      in launches[name].items()},
                "live_ms": lat}
         runs[name] = run
         print(f"sweep graphs, run_live {'with' if name == 'imu' else 'without'} "
@@ -1154,16 +1238,38 @@ def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
               f"({run['sweeps_per_sec'] / run['eager_sweeps_per_sec']:.2f}x); "
               f"p50 {run['p50_ms']:.1f} ms, max {run['max_ms']:.1f} ms (eager "
               f"{run['eager_p50_ms']:.1f} / {run['eager_max_ms']:.1f} ms); "
-              f"{run['flag_reads_per_sweep']:.2f} stop-flag reads and "
-              f"{run['replays_per_sweep']:.2f} graph replays a sweep, one "
-              f"packed row read back; card: {card}", flush=True)
+              f"{run['replays_per_sweep']:.2f} graph replays and launches "
+              f"{json.dumps(run['launches_per_sweep'])} a sweep; card: {card}",
+              flush=True)
         if differ or launches[name] != ref[1] or not all(ref[1].values()):
             failures.append(f"{name}: columns {differ} differ, launches "
                             f"{launches[name]} against {ref[1]}")
     if set(graphs.stats) != keys:
         failures.append(f"captured inside the runs: {set(graphs.stats) - keys}")
+    # (4) The host's syncs a graphed sweep.
+    drv = LoamDriver(cfg, dev, sweep_capacity=cap, system_delay=0)
+    syncs = _host_syncs(lambda: drv.run_live(sweeps[:SYNC_SWEEPS]), dev)
+    per_sweep_syncs = {k: v for k, v in syncs.items()
+                       if v > (SYNC_SWEEPS if k == ROW_READ_SYNC else 1)}
+    print(f"sweep graphs: host syncs in a graphed run_live of {SYNC_SWEEPS} "
+          f"sweeps (no IMU, under the profiler): {json.dumps(syncs)}; "
+          f"synchronizing calls besides the packed rows' {ROW_READ_SYNC}s "
+          f"(a stop-flag read would add one each GN phase): "
+          f"{sum(syncs.values()) - syncs.get(ROW_READ_SYNC, 0)}", flush=True)
+    if per_sweep_syncs:
+        failures.append(f"synchronizing calls made each graphed sweep beyond "
+                        f"one {ROW_READ_SYNC}: {per_sweep_syncs}")
+    conditional_nodes = {" ".join(map(str, k)): st.conditional_nodes
+                         for k, st in graphs.stats.items()}
+    gn_keys = [("odometry", True), ("mapping",)]
+    if not all(graphs.stats[k].conditional_nodes for k in gn_keys):
+        failures.append(f"GN keys without conditional nodes: "
+                        f"{conditional_nodes}")
     out = {"setup_s": setup_s, "keys": len(keys), "nodes": nodes,
-           "pool_bytes": pool, "graphs": stats, "runs": runs,
+           "conditional_nodes": conditional_nodes, "pool_bytes": pool,
+           "graphs": stats, "runs": runs,
+           "host_syncs_per_sweep": {k: v / SYNC_SWEEPS
+                                    for k, v in syncs.items()},
            "seconds": time.perf_counter() - t_phase}
     print(f"sweep graphs: the phase took {out['seconds']:.1f} s; card: {card}",
           flush=True)
@@ -1701,8 +1807,11 @@ def run_multiprocess(dev, card: str) -> dict:
     bit-equal to each rank's two lanes replayed here through
     the eager batched chunk at B = 2 after the workers have exited (alone
     on the card; the workers run the CUDA graphs, so this holds graphed
-    lanes to eager ones), whose ATE and loss counters are gated. All readings are printed before any
-    gate is applied."""
+    lanes to eager ones), whose ATE and loss counters are gated. The
+    workers' graphs skip the GN phases after the stop on the card: each
+    worker's launches, counted on its card, are those this process's
+    eager run of its lanes needed (``launch_counts.needed``). All
+    readings are printed before any gate is applied."""
     t_phase = time.perf_counter()
     os.makedirs(os.path.dirname(MULTI_REPORT), exist_ok=True)
     rc = dryrun_dcn.main(["--device", dev.type, "--preset", MULTI_PRESET,
@@ -1711,7 +1820,7 @@ def run_multiprocess(dev, card: str) -> dict:
     if rc != 0:
         raise AssertionError(f"multi-process: the dry run exited {rc}")
     # This process's own B = 2 run of each rank's lanes.
-    own, own_secs, ates, losses = [], [], [], []
+    own, own_secs, ates, losses, own_needed = [], [], [], [], []
     for rank in range(dryrun_dcn.N_PROC):
         case = dryrun_dcn.CASES[MULTI_PRESET](rank)
         if case.chunk != CHUNK:
@@ -1719,9 +1828,11 @@ def run_multiprocess(dev, card: str) -> dict:
                                  f"not {CHUNK}")
         xyz, mask = zip(*(synthetic.pad_sweeps(lane, case.cap)
                           for lane in case.lanes))
-        packed, secs = _batched_replay(
-            case.cfg, torch.from_numpy(np.stack(xyz)).to(dev),
-            torch.from_numpy(np.stack(mask)).to(dev))
+        with launch_counts.needed() as needed:
+            packed, secs = _batched_replay(
+                case.cfg, torch.from_numpy(np.stack(xyz)).to(dev),
+                torch.from_numpy(np.stack(mask)).to(dev))
+        own_needed.append(_needed(needed))
         own.append(packed[:, :, 15:18])
         own_secs.append(secs)
         ates += [ate_rmse(packed[i, :, 15:18], gt, align=True)
@@ -1731,13 +1842,16 @@ def run_multiprocess(dev, card: str) -> dict:
         report = json.load(f)
     workers = report["workers"]
     gathered = np.asarray(workers[0]["positions"], np.float32)
-    expected = _expected_launches(gathered.shape[1])
+    eager = _expected_launches(gathered.shape[1])
+    expected = own_needed
     for w in workers:
         print(f"multi-process: rank {w['rank']} on {w['device']} "
               f"({w['card']}): {w['sweeps']} sweeps x {w['lanes']} lanes in "
               f"{w['seconds']:.1f} s, chunk seconds "
               f"{[round(x, 2) for x in w['chunk_seconds']]}; lane-form "
-              f"launches {json.dumps(w['launches'])}; card: {card}", flush=True)
+              f"launches {json.dumps(w['launches'])} (expected "
+              f"{json.dumps(expected[w['rank']])}, eager "
+              f"{json.dumps(eager)}); card: {card}", flush=True)
     own = np.concatenate(own)
     lanes_equal = [bool(np.array_equal(gathered[i], own[i]))
                    for i in range(len(own))]
@@ -1768,9 +1882,10 @@ def run_multiprocess(dev, card: str) -> dict:
                  else "cpu")
     for w in workers:
         if not (w["device"].startswith(dev.type) and w["card"] == want_card
-                and w["launches"] == expected):
+                and w["launches"] == expected[w["rank"]]):
             failures.append(f"rank {w['rank']}: {w['device']} {w['card']}, "
-                            f"launches {w['launches']}, expected {expected}")
+                            f"launches {w['launches']}, expected "
+                            f"{expected[w['rank']]}")
     if not (out["gathered_equal"] and out["lane0_max_abs_diff"] == 0.0
             and all(lanes_equal)):
         failures.append("the gathered lanes differ")
@@ -2023,7 +2138,8 @@ def main() -> int:
     floor_ms = launch_floor(dev)
     sized = sized_config()
     kernels = check_kernels(dev, sized)
-    launches, greedy_calls, replay_packed, chunk_ms, rate = run_engine(dev, card)
+    (launches, greedy_calls, replay_packed, chunk_ms, rate,
+     replay_needed) = run_engine(dev, card)
     cfg = LoamConfig.preset("VLP-16")
     seq = synthetic.bench_sequence(LIVE_SWEEPS, cfg.lidar, SWEEP_CAP)
     # The phases that count or record kernel calls step the eager path:
@@ -2044,7 +2160,8 @@ def main() -> int:
         gates = run_trajectory_gates(dev, replay_packed)
     batched, distinct = run_batched(dev, card, replay_packed, chunk_ms)
     graph_launches, graph = run_graph(dev, card, replay_packed, chunk_ms,
-                                      distinct, batched["sweeps_per_sec"])
+                                      replay_needed, distinct,
+                                      batched["sweeps_per_sec"])
     sweep_graph_launches, sweep_graph = run_sweep_graphs(
         dev, card, cfg, seq[0], seq[1], live_ref)
     multi = run_multiprocess(dev, card)
@@ -2060,8 +2177,9 @@ def main() -> int:
                         "calls_at_b1": bench_out["single_lane_calls"][kernel],
                         f"calls_at_b{BENCH_LANES}": bench_out["lane_calls"][kernel],
                         "calls": bench_out["calls"][kernel + "_lanes"]}
-        row["graph"] = {"launches": graph_launches[
-            "batched" if row["name"].endswith("_lanes") else "single"][kernel]}
+        run = "batched" if row["name"].endswith("_lanes") else "single"
+        row["graph"] = {"launches": graph_launches[run][kernel],
+                        "eager_launches": graph[run]["eager_launches"][kernel]}
         if row["name"].endswith("_lanes"):
             n = (batched["identical_launches"][kernel]
                  + batched["distinct_launches"][kernel])

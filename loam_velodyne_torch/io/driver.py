@@ -18,9 +18,9 @@ graphed sweep copies the state in.
 The live loop pipelines one sweep deep: it dispatches sweep N, copies
 its packed row into pinned host memory behind a CUDA event, stages
 sweep N+1 (pad, host-to-device copy, IMU window) and only then waits
-for sweep N-1's row. That wait is its one synchronization per sweep
-besides the step's own: the GNs' stop-flag reads, one a refresh phase,
-inside the dispatch.
+for sweep N-1's row. That wait is its one synchronization per sweep: on
+the card the step's graphs decide the GNs' stop on the device
+(conditional nodes), so the dispatch reads nothing back.
 """
 
 from __future__ import annotations

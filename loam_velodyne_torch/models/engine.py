@@ -13,10 +13,11 @@ so the state matches the JAX layout and checkpoints load both ways.
 the dynamic GN schedules, an optional IMU window); "on" / "off" are the
 static cadence that ``run_chunk(static_cadence=True)`` schedules.
 ``step_graphed`` is the per-sweep path through CUDA graphs of the same
-segments (``front``, odometry's, mapping's, ``close``), each GN as its
-refresh phases with one stop flag read a phase: the counterpart of the
-JAX driver's jitted step over ``lax.while_loop``; the eager ``step``
-stays the plain reference it is held to. ``registered_cloud`` is the
+segments (``front``, odometry's, mapping's, ``close``), each GN's
+phases and iterations conditional nodes that the card skips once it
+has stopped, with nothing read back inside the sweep: the counterpart
+of the JAX driver's jitted step over ``lax.while_loop``; the eager
+``step`` stays the plain reference it is held to. ``registered_cloud`` is the
 full-resolution sweep in the map frame. ``Engine`` holds the device,
 the state and the host cadence.
 """
@@ -246,11 +247,10 @@ def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
     ``run_chunk(static_cadence=True)``, False with "auto").
 
     The segments are those that ``step_graphed`` replays: ``front``,
-    odometry (``odometry.step``: its first sweep, or ``gn_begin``, the
-    GN and ``finish``), mapping when due (``mapping.step``: ``prepare``,
-    the GN and ``finish``) and ``close``. This eager form, whose dynamic
-    GN reads its stop flag once an iteration, is the plain reference the
-    graphs are held to."""
+    odometry (``odometry.step``), mapping when due (``mapping.step``:
+    ``prepare``, the GN and ``finish``) and ``close``. This eager form,
+    whose dynamic GN reads its stop flag once an iteration, is the plain
+    reference the graphs are held to."""
     if mapping_mode not in ("auto", "on", "off"):
         raise ValueError(f"mapping_mode must be 'auto', 'on' or 'off', "
                          f"got {mapping_mode!r}")
@@ -280,15 +280,16 @@ def step_graphed(graphs: graph_mod.SweepGraphs, state: EngineState,
                  ) -> Tuple[EngineState, EngineOutputs]:
     """``step(mapping_mode="auto")`` through the per-sweep graphs
     (``graph.SweepGraphs``): the same segments, each replayed as the
-    graph of its key, and each GN as its refresh phases with one stop
-    flag read before each phase (``SweepGraphs.stopped``) instead of one
-    an iteration. A key holds the host's branches that its segment
-    bakes in: the sweep's shape and IMU window layout (the front),
-    odometry's first sweep, the phase index, and the cadence decisions
-    with the IMU (the tail). A pre segment and all its phases are
-    captured together, at the first sweep that needs the pre segment.
-    Returns fresh tensors, equal bit for bit to ``step``'s."""
-    odo, m = cfg.odometry, cfg.mapping
+    graph of its key, and each GN as the static schedule's phases (which
+    give the dynamic schedule's transform bit for bit), every phase and
+    every iteration after a phase's first a conditional node that the
+    card skips once the GN has stopped (``models/conditional.py``), so
+    nothing is read back inside the sweep. A GN's start, phases and end
+    are one graph: odometry's, and mapping's prepare with its GN. A key
+    holds the host's branches that its segment bakes in: the sweep's
+    shape and IMU window layout (the front), odometry's first sweep, and
+    the cadence decisions with the IMU (the tail). Returns fresh
+    tensors, equal bit for bit to ``step``'s."""
     raw_slot = ("raw", tuple(raw.xyz.shape))
     reads = (raw_slot,)
     graphs.load("state", state)
@@ -299,39 +300,17 @@ def step_graphed(graphs: graph_mod.SweepGraphs, state: EngineState,
         reads += (win_slot,)
     graphs.run(("front",) + reads, graph_mod.Segment(
         lambda r, w=None: (front(r, w, cfg),), reads, ("front",)))
-
-    if not cadence.initialized:
-        graphs.run(("odometry_first",), graph_mod.Segment(
-            lambda s, f: (odometry_mod.first_sweep(s.odometry, f.feats, f.imu),),
-            ("state", "front"), ("odometry",)))
-    else:
-        phases = [(("odometry_phase", p), graph_mod.Segment(
-            functools.partial(_odometry_phase, phase=p, cfg=cfg),
-            ("odometry_gn", "front", "state"), ("odometry_gn",)))
-            for p in range(odometry_mod.n_phases(odo.max_iterations,
-                                                 odo.corresp_refresh_every))]
-        graphs.run(("odometry_begin",), graph_mod.Segment(
-            lambda s, f: (odometry_mod.gn_begin(s.odometry, f.imu, cfg),),
-            ("state", "front"), ("odometry_gn",)), also=phases)
-        graphs.phases("odometry_gn", phases)
-        graphs.run(("odometry_finish",), graph_mod.Segment(
-            lambda s, f, c: (odometry_mod.finish(s.odometry, f.feats, c.tf,
-                                                 f.imu, cfg),),
-            ("state", "front", "odometry_gn"), ("odometry",)))
+    graphs.run(("odometry", cadence.initialized), graph_mod.Segment(
+        lambda s, f: (odometry_mod.step(s.odometry, f.feats, cfg,
+                                        cadence.initialized, f.imu),),
+        ("state", "front"), ("odometry",)))
 
     mapping_input, due = cadence.gate(cfg)
     tail_reads = ("state", "front", "odometry")
     if due:
-        phases = [(("mapping_phase", p), graph_mod.Segment(
-            functools.partial(_mapping_phase, phase=p, cfg=cfg),
-            ("mapping_gn", "mapping_targets"), ("mapping_gn",)))
-            for p in range(odometry_mod.n_phases(m.max_iterations,
-                                                 m.corresp_refresh_every))]
-        graphs.run(("mapping_prepare",), graph_mod.Segment(
-            functools.partial(_mapping_prepare, cfg=cfg),
-            ("state", "odometry"),
-            ("mapping_frame", "mapping_targets", "mapping_gn")), also=phases)
-        graphs.phases("mapping_gn", phases)
+        graphs.run(("mapping",), graph_mod.Segment(
+            functools.partial(_mapping_gn, cfg=cfg), ("state", "odometry"),
+            ("mapping_frame", "mapping_gn")))
         tail_reads += ("mapping_frame", "mapping_gn")
     imu = imu_window is not None and due
     graphs.run(("tail", mapping_input, due, imu), graph_mod.Segment(
@@ -341,25 +320,16 @@ def step_graphed(graphs: graph_mod.SweepGraphs, state: EngineState,
     return graphs.take("state"), graphs.take("outputs")
 
 
-def _odometry_phase(carry, f: Front, state: EngineState, phase: int,
-                    cfg: LoamConfig):
-    o = state.odometry
-    return (odometry_mod.gn_phase(carry, phase, f.feats.sharp, f.feats.flat,
-                                  o.last_corner, o.last_surf, cfg),)
-
-
-def _mapping_prepare(state: EngineState, odometry, cfg: LoamConfig):
+def _mapping_gn(state: EngineState, odometry, cfg: LoamConfig):
+    """A mapping frame up to its refined pose: ``prepare`` and the GN."""
     oouts = odometry[1]
     fr = mapping_mod.prepare(state.mapping, oouts.transform_sum,
                              oouts.corner_cloud, oouts.surf_cloud, cfg)
     targets, run = mapping_mod.gn_targets(
         fr.corner_stack, fr.surf_stack, fr.map_c_xyz, fr.map_c_mask,
         fr.map_s_xyz, fr.map_s_mask, cfg)
-    return fr, targets, odometry_mod.gn_start(fr.tobe, run)
-
-
-def _mapping_phase(carry, targets, phase: int, cfg: LoamConfig):
-    return (mapping_mod.gn_phase(carry, phase, targets, cfg),)
+    return fr, mapping_mod.gn_phases(odometry_mod.gn_start(fr.tobe, run),
+                                     targets, cfg)
 
 
 def _tail(state: EngineState, f: Front, odometry, fr=None, carry=None, *,

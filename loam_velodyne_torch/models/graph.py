@@ -1,21 +1,26 @@
 """The compiled chunk and the compiled per-sweep step, as CUDA graphs.
 
 ``ChunkGraphs`` (below) replays the static chunk; ``SweepGraphs`` (at the
-end) the per-sweep step's segments and GN phases, the counterpart of the
-JAX driver's jitted step (``loam_velodyne_tpu/io/driver.py:55-61``),
-whose GN is a ``lax.while_loop`` on the device: here the host reads the
-loop's stop flag once a refresh phase, between two replays
-(``models/engine.py::step_graphed`` composes the segments).
+end) the per-sweep step's segments, the counterpart of the JAX driver's
+jitted step (``loam_velodyne_tpu/io/driver.py:55-61``), whose GN is a
+``lax.while_loop`` on the device: here each GN phase, and each iteration
+after a phase's first, is captured under a conditional node that the
+card skips once the GN has stopped (``models/conditional.py``), so no
+stop flag is read on the host (``models/engine.py::step_graphed``
+composes the segments).
 
 The static chunk: one group of the static chunk as a CUDA graph.
 
 Counterpart of ``jax.jit`` over the ``lax.scan`` of
 ``loam_velodyne_tpu/models/engine.py::run_chunk(static_cadence=True)``
 (its scan body, ``engine.py:246-258``: one group of ``io_ratio``
-sweeps, mapping off then on, the static GN schedules). The eager chunk
-(``engine.run_chunk``) dispatches ~74k small operations a sweep from
-Python; here one group of sweeps is captured once as a CUDA graph and
-replayed, so the host launches one graph a group.
+sweeps, mapping off then on, the static GN schedules, whose
+``lax.while_loop`` over phases leaves at the converged phase). The eager
+chunk (``engine.run_chunk``) dispatches ~74k small operations a sweep
+from Python and runs every phase masked; here one group of sweeps is
+captured once as a CUDA graph and replayed, so the host launches one
+graph a group, and the card skips the phases and iterations after a
+GN's stop (on every lane, in the batched form).
 
 A ``ChunkGraphs`` serves one caller (``Engine.run_chunk`` on the card,
 ``parallel/replay.py::make_batched_chunk``'s callable), the counterpart
@@ -29,7 +34,7 @@ of the JAX driver's dict of jitted chunk steps:
   sweep) and Python constants (``mapping_inputs + int(mapping_input)``)
   that the graph bakes in, so the first group of a sequence and a
   steady group are two graphs. All graphs of a device share one memory
-  pool.
+  pool (and the conditional bodies' pools).
 - **Buffers.** The graphs own their inputs: the state, one group's raw
   sweeps and IMU windows, shared by the graphs of one shape. A call
   copies the caller's state in once, then for each group copies the
@@ -50,11 +55,11 @@ of the JAX driver's dict of jitted chunk steps:
   eager retry and no switch that turns the graph off. The warm-up's
   outputs are dropped; the state it reads is left as it was (the
   engine is a function of its state).
-- **Launch counts.** Each kernel wrapper counts its launches in Python,
-  which runs only while a graph is captured. The capture records how
-  many launches of each kernel one replay holds and adds them to the
-  wrapper's ``launches`` on every replay; the warm-up and the capture
-  add nothing. So a graphed run reads the counts of an eager one.
+- **Launch counts.** A kernel wrapper captured into a graph counts its
+  launch on the card, beside it (``ops/launches.py``): each replay adds
+  the launches it runs, those inside a conditional node only when the
+  card runs the node. ``launches.settle`` adds them to the wrappers'
+  ``launches`` where the caller synchronises. The warm-up adds nothing.
 
 The graphs run on a CUDA device only (``ChunkGraphs`` and
 ``SweepGraphs`` raise on any other); the CPU runs the eager chunk and
@@ -72,12 +77,13 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from loam_velodyne_torch.config import LoamConfig
+from loam_velodyne_torch.models import conditional
 from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
-                                     grid_kernel, knn_kernel)
+                                     grid_kernel, knn_kernel, launches)
 
 Tensor = torch.Tensor
 
-# The kernel wrappers whose launch counts the graphs keep.
+# The kernel wrappers whose launches the graphs count on the card.
 COUNTED = (grid_kernel.grid_windows, greedy_kernel.greedy_pick_rows,
            corresp_kernel.corresp_search, knn_kernel.grouped_window_knn)
 
@@ -92,11 +98,12 @@ def pool(device: torch.device):
 
 
 def pool_bytes(device: torch.device) -> int:
-    """Bytes of device memory the shared pool holds."""
-    want = tuple(pool(device))
+    """Bytes of device memory the shared pool and the conditional
+    bodies' pools hold."""
+    want = {tuple(p) for p in [pool(device)] + conditional.pools(device)}
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg["device"] == device.index
-               and tuple(seg.get("segment_pool_id", ())) == want)
+               and tuple(seg.get("segment_pool_id", ())) in want)
 
 
 def leaves(tree) -> list:
@@ -149,22 +156,21 @@ class _LastOp(TorchDispatchMode):
 
 class GraphStats(NamedTuple):
     """One captured graph: the warm-up, capture and instantiation
-    seconds (host clock, the card synchronised), its nodes, the shared
-    pool's bytes after it was captured, and its launches of each
-    counted kernel per replay."""
+    seconds (host clock, the card synchronised), its nodes (the
+    conditional nodes' bodies included), its conditional nodes and the
+    shared pools' bytes after it was captured."""
 
     warmup_s: float
     capture_s: float
     instantiate_s: float
     nodes: Optional[int]
+    conditional_nodes: int
     pool_bytes: int
-    launches: dict
 
 
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     outs: object              # the group's outputs, in the graph's pool
-    launches: tuple           # per replay, by COUNTED
     stats: GraphStats
 
 
@@ -197,9 +203,8 @@ def capture(device: torch.device, stream, warm: Callable, body: Callable,
     errors. No garbage is collected during the capture: a CUDA graph or
     event freed there (an unreachable cycle that held one) would
     invalidate it. A failed capture raises and names ``what`` and the
-    last operation dispatched. The launches of each counted kernel in
-    the graph are measured at the capture; the warm-up and the capture
-    add none to the wrappers' counts."""
+    last operation dispatched. The warm-up adds nothing to the wrappers'
+    launch counts; the graph counts its launches on the card."""
     before = tuple(f.launches for f in COUNTED)
     caller_sync_mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
@@ -208,19 +213,22 @@ def capture(device: torch.device, stream, warm: Callable, body: Callable,
     gc.disable()
     try:
         t0 = time.perf_counter()
+        conditional.prepare(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             warm()
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for f, n in zip(COUNTED, before):
+            f.launches = n
         mode = _LastOp()
-        started = tuple(f.launches for f in COUNTED)
         try:
-            with torch.cuda.graph(graph, pool=pool(device), stream=stream):
+            with launches.on_card(device, COUNTED), \
+                    torch.cuda.graph(graph, pool=pool(device), stream=stream):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    with mode:
+                    with mode, conditional.recording() as regions:
                         outs = body()
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
@@ -228,11 +236,9 @@ def capture(device: torch.device, stream, warm: Callable, body: Callable,
             raise RuntimeError(
                 f"CUDA graph capture of {what} failed; the last operation "
                 f"dispatched was {mode.last}") from e
-        launches = tuple(f.launches - s for f, s in zip(COUNTED, started))
-        for f, n in zip(COUNTED, before):
-            f.launches = n
         t2 = time.perf_counter()
-        nodes = _graph_nodes(graph.raw_cuda_graph())
+        top = _graph_nodes(graph.raw_cuda_graph())
+        nodes = None if top is None else top + sum(regions)
         graph.instantiate()
         torch.cuda.synchronize(device)
         t3 = time.perf_counter()
@@ -242,9 +248,9 @@ def capture(device: torch.device, stream, warm: Callable, body: Callable,
             gc.enable()
     stats = GraphStats(
         warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
-        nodes=nodes, pool_bytes=pool_bytes(device),
-        launches={f.__name__: n for f, n in zip(COUNTED, launches)})
-    return _Captured(graph, outs, launches, stats)
+        nodes=nodes, conditional_nodes=len(regions),
+        pool_bytes=pool_bytes(device))
+    return _Captured(graph, outs, stats)
 
 
 class ChunkGraphs:
@@ -323,8 +329,6 @@ class ChunkGraphs:
             if cap is None:
                 cap = self._graphs[key] = self._capture(bufs, start, device)
             cap.graph.replay()
-            for fn, n in zip(COUNTED, cap.launches):
-                fn.launches += n
             outs.append(tree_map(torch.clone, cap.outs))
         return tree_map(torch.clone, bufs.state), _cat(outs, ax)
 
@@ -379,25 +383,24 @@ class SweepGraphs:
 
     - **Slots.** The segments pass their inputs and outputs through
       named slots: trees of device buffers outside the pool (the state,
-      the raw sweep, the IMU window, the front's features, each GN's
-      carry, ...). A graph reads its slots and ends by copying its
+      the raw sweep, the IMU window, the front's features, odometry's
+      outputs, ...). A graph reads its slots and ends by copying its
       outputs into the slots it writes, so no data that outlives a
       replay sits in the pool, and the graphs may replay in any order
-      and any number of times: a GN phase reads and writes its carry's
-      slot. ``load`` copies a caller's tree into a slot (the state, each
-      call), ``take`` returns fresh copies of one.
+      and any number of times. ``load`` copies a caller's tree into a
+      slot (the state, each call), ``take`` returns fresh copies of one.
     - **Capture.** A key's graph is captured at its first use, after a
       warm-up of its segment on a side stream that also allocates, from
       its outputs, the slots it is the first to write (so the slots hold
-      valid values for the next segment's warm-up); ``run(..., also=)``
-      captures a group of keys together (a GN's pre segment with all its
-      phases). A segment is a function of its slots: neither the warm-up
-      nor the capture changes a slot.
-    - **Stop flags.** ``stopped`` reads a GN carry's ``done`` flag
-      between two replays: a copy into pinned host memory behind a CUDA
-      event, counted in ``flag_reads``. It never sits inside a capture.
-    - **Launch counts** as in ``ChunkGraphs``: measured at the capture,
-      added on every replay.
+      valid values for the next segment's warm-up). A segment is a
+      function of its slots: neither the warm-up nor the capture changes
+      a slot.
+    - **The GN's stop.** A GN's start, phases and end are one segment:
+      each phase, and each iteration after a phase's first, is a
+      conditional node that the card skips once the GN has stopped
+      (``models/conditional.py``). Every graph replays unconditionally,
+      and nothing is read back between replays.
+    - **Launch counts** as in ``ChunkGraphs``: on the card.
 
     ``sweep_graphs`` gives every engine of one configuration on one card
     the same ``SweepGraphs``."""
@@ -407,8 +410,6 @@ class SweepGraphs:
         self.slots: dict = {}
         self._graphs: dict = {}
         self._stream = None
-        self._flag = None
-        self.flag_reads = 0
         self.replays = 0
 
     @property
@@ -430,43 +431,13 @@ class SweepGraphs:
         """Fresh copies of a slot's tensors: no later replay writes them."""
         return tree_map(torch.clone, self.slots[slot])
 
-    def run(self, key, segment: Segment, also=()) -> None:
-        """Replay the graph of ``key``. On its first use it is captured,
-        and with it every (key, segment) of ``also`` not captured yet."""
+    def run(self, key, segment: Segment) -> None:
+        """Replay the graph of ``key``, captured on its first use."""
         cap = self._graphs.get(key)
         if cap is None:
-            for k, seg in ((key, segment),) + tuple(also):
-                if k not in self._graphs:
-                    self._graphs[k] = self._capture(k, seg)
-            cap = self._graphs[key]
+            cap = self._graphs[key] = self._capture(key, segment)
         cap.graph.replay()
-        for fn, n in zip(COUNTED, cap.launches):
-            fn.launches += n
         self.replays += 1
-
-    def phases(self, slot, phases) -> None:
-        """A GN's phases, (key, segment) in order, over the carry in
-        ``slot``: before each, the host reads whether the carry is done
-        and, if it is, skips the rest."""
-        for key, seg in phases:
-            if self.stopped(slot):
-                return
-            self.run(key, seg)
-
-    def stopped(self, slot) -> bool:
-        """Whether the GN carry in ``slot`` is done: one read of its
-        flag."""
-        self.flag_reads += 1
-        return self._read(self.slots[slot].done)
-
-    def _read(self, flag: Tensor) -> bool:
-        if self._flag is None:
-            self._flag = torch.empty((), dtype=torch.bool, pin_memory=True)
-        self._flag.copy_(flag, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        ev.synchronize()
-        return bool(self._flag)
 
     def _capture(self, key, seg: Segment) -> _Captured:
         def args():

@@ -4,16 +4,17 @@ Counterpart of ``loam_velodyne_tpu/models/mapping.py``: toroidal cube
 addressing, the two-tier slab + archive map, the windowed 5-NN through
 kernel K4 and the batched closed-form fits, with both GN schedules of
 ``optimize_pose``: the static one (fits refreshed at each phase start,
-iterations past the early abort frozen by masks, nothing read back) and
-the dynamic one (fits refreshed every ``corresp_refresh_every``
-iterations, the loop left at the first converged iteration, one read
-of the stop flag per iteration). ``step`` takes the IMU's sweep-end
-attitude for the 0.998 / 0.002 roll / pitch blend. A step is three
-parts, so that the per-sweep graphs can read the GN's stop flag between
-them: ``prepare`` (the stacks, the recentred window and the map clouds
-the GN aligns to), the GN (``gn_targets``, then ``gn_phase`` per refresh
-phase, which the static schedule also loops over) and ``finish`` (the
-IMU blend, the map update and the telemetry). The exports
+iterations past the early abort frozen by masks, nothing read back;
+each phase and each iteration after a phase's first a region of
+``models/conditional.py``, which a CUDA graph skips on the card once
+the GN has stopped) and the dynamic one (fits refreshed every
+``corresp_refresh_every`` iterations, the loop left at the first
+converged iteration, one read of the stop flag per iteration). ``step``
+takes the IMU's sweep-end attitude for the 0.998 / 0.002 roll / pitch
+blend. A step is three parts, which the per-sweep graphs compose:
+``prepare`` (the stacks, the recentred window and the map clouds the GN
+aligns to), the GN (``gn_targets``, then ``gn_phases``) and ``finish``
+(the IMU blend, the map update and the telemetry). The exports
 (``full_map``, ``surround_map``) and the archive's dedup compaction
 (``compact_archive``) run off the per-sweep path.
 
@@ -28,6 +29,7 @@ Torch idiom where JAX needed its own:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from torch.func import grad, vmap
 
 from loam_velodyne_torch.config import LoamConfig, MappingConfig
+from loam_velodyne_torch.models import conditional
 from loam_velodyne_torch.models.odometry import (GnCarry, degeneracy_projector,
                                                  gn_start, n_phases, solve_gn)
 from loam_velodyne_torch.ops import fit
@@ -541,23 +544,42 @@ def gn_phase(carry: GnCarry, phase: int, targets: GnTargets,
              cfg: LoamConfig) -> GnCarry:
     """Phase ``phase`` of the map GN: the 5-NN and fits refreshed at the
     carried pose (K4), then the phase's iterations against them, each
-    after the stop frozen by masks (as ``odometry.gn_phase``)."""
+    after the stop frozen by masks and each after the phase's first a
+    conditional region (as ``odometry.gn_phase``). Only the carry
+    leaves a phase."""
     m = cfg.mapping
-    tf, mat_p, degenerate, done = carry
-    fits = _refresh_fits(tf, targets, m)
+    fits = _refresh_fits(carry.tf, targets, m)
+
+    def iteration(c: GnCarry, it: int) -> GnCarry:
+        tf_new, mat_p_new, degen_new, done_step = _iteration(
+            c.tf, c.mat_p, c.degenerate, targets, fits, m,
+            compute_projector=(it == 0))
+        active = ~c.done
+        return GnCarry(torch.where(active, tf_new, c.tf),
+                       torch.where(active, mat_p_new, c.mat_p),
+                       torch.where(active, degen_new, c.degenerate),
+                       c.done | (active & done_step))
+
     for j in range(m.corresp_refresh_every):
         it = phase * m.corresp_refresh_every + j
         if it >= m.max_iterations:
             break
-        tf_new, mat_p_new, degen_new, done_step = _iteration(
-            tf, mat_p, degenerate, targets, fits, m,
-            compute_projector=(it == 0))
-        active = ~done
-        tf = torch.where(active, tf_new, tf)
-        mat_p = torch.where(active, mat_p_new, mat_p)
-        degenerate = torch.where(active, degen_new, degenerate)
-        done = done | (active & done_step)
-    return GnCarry(tf, mat_p, degenerate, done)
+        body = functools.partial(iteration, it=it)
+        carry = (body(carry) if j == 0
+                 else conditional.run_if_running(carry.done, body, carry))
+    return carry
+
+
+def gn_phases(carry: GnCarry, targets: GnTargets, cfg: LoamConfig) -> GnCarry:
+    """Every refresh phase of the map GN from ``carry`` (``gn_phase``),
+    each a conditional region: the JAX package's ``lax.while_loop`` over
+    phases."""
+    m = cfg.mapping
+    for phase in range(n_phases(m.max_iterations, m.corresp_refresh_every)):
+        carry = conditional.run_if_running(
+            carry.done, lambda c, p=phase: gn_phase(c, p, targets, cfg),
+            carry)
+    return carry
 
 
 def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
@@ -575,10 +597,7 @@ def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
                               map_corner_mask, map_surf_xyz, map_surf_mask,
                               cfg)
     if static_schedule:
-        carry = gn_start(tobe0, run)
-        for phase in range(n_phases(m.max_iterations, m.corresp_refresh_every)):
-            carry = gn_phase(carry, phase, targets, cfg)
-        return carry.tf
+        return gn_phases(gn_start(tobe0, run), targets, cfg).tf
     if not bool(run):
         return tobe0
     tf = tobe0

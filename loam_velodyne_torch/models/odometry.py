@@ -2,10 +2,14 @@
 
 Counterpart of ``loam_velodyne_tpu/models/odometry.py``, with both of
 its Gauss-Newton schedules. The static one (``run_gn_static``, the
-chunked replay's): correspondences are re-found at the start of each
-refresh phase through kernel K3, and an iteration that would come after
-the early abort is frozen by masks instead of skipped, so nothing is
-read back from the device. The dynamic one (``run_gauss_newton`` with
+chunked replay's and the per-sweep graphs'): correspondences are
+re-found at the start of each refresh phase through kernel K3, and an
+iteration that would come after the early abort is frozen by masks, so
+nothing is read back from the device. Each phase, and each iteration
+after a phase's first, is a region of ``models/conditional.py``: eagerly
+it runs masked, and in a CUDA graph the card skips it once the GN has
+stopped, as the JAX package's ``lax.while_loop`` over phases leaves at
+the converged one. The dynamic one (``run_gauss_newton`` with
 ``static_schedule=False``, the per-sweep path's plain reference):
 correspondences are re-found every ``corresp_refresh_every`` iterations
 and the loop stops at the first converged iteration, which costs one
@@ -14,14 +18,12 @@ IMU sweep state (``ops/imu.py::sweep_state``) enters as in the JAX
 package: the pitch / roll seed on the first sweep, the velocity prior,
 the shift terms and ``plugin_imu_rotation``; without an IMU it is zero.
 
-A step is three parts, so that the per-sweep graphs
-(``models/engine.py::step_graphed``) can read the stop flag between
-them: ``gn_begin`` (the start transform and whether the GN runs at
-all), the GN phases (``gn_phase``, one refresh of the correspondences
-and its iterations, which ``run_gn_static`` also loops over) and
-``finish`` (the pose accumulation and the clouds for the next sweep);
-``first_sweep`` is the step of a sequence's first sweep, which has no
-GN.
+A step is three parts: ``initial_transform`` (the GN's start), the GN
+(``run_gauss_newton``; in the static schedule ``gn_phases``, each a
+``gn_phase``: one refresh of the correspondences and its iterations)
+and ``finish`` (the pose accumulation and the clouds for the next
+sweep); ``first_sweep`` is the step of a sequence's first sweep, which
+has no GN.
 
 Which branch a step takes (first sweep or not) is a host-side flag: it
 is a function of the sweep counter, which the engine keeps on the host.
@@ -29,12 +31,14 @@ is a function of the sweep counter, which the engine keeps on the host.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 from torch.func import grad, vmap
 
 from loam_velodyne_torch.config import LoamConfig
+from loam_velodyne_torch.models import conditional
 from loam_velodyne_torch.ops.features import SweepFeatures
 from loam_velodyne_torch.ops.neighbors import (corner_correspondences_fused,
                                                surf_correspondences_fused)
@@ -236,46 +240,65 @@ def gn_phase(carry: GnCarry, phase: int, sharp: PointSet, flat: PointSet,
     carried transform (K3), then the phase's iterations against them.
     An iteration after the stop is frozen by masks, so a phase computes
     what the dynamic loop computes up to its break, and changes nothing
-    once the carry is done. ``phase`` is a Python int: it fixes which
-    iterations are weighted and which computes the projector."""
+    once the carry is done; each iteration after the phase's first is a
+    conditional region (skipped on the card once the carry is done).
+    ``phase`` is a Python int: it fixes which iterations are weighted
+    and which computes the projector. Only the carry leaves a phase."""
     odo = cfg.odometry
     refresh_every = odo.corresp_refresh_every
-    tf, mat_p, degenerate, done = carry
-    x_c = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
-    x_s = lm.transform_to_start(flat.xyz, flat.rel, tf)
+    x_c = lm.transform_to_start(sharp.xyz, sharp.rel, carry.tf)
+    x_s = lm.transform_to_start(flat.xyz, flat.rel, carry.tf)
     cm = corner_correspondences_fused(x_c, sharp.mask, last_corner,
                                       odo.ring_bracket)
     sm = surf_correspondences_fused(x_s, flat.mask, last_surf,
                                     odo.ring_bracket)
+
+    def iteration(c: GnCarry, it: int) -> GnCarry:
+        x_c_j = lm.transform_to_start(sharp.xyz, sharp.rel, c.tf)
+        x_s_j = lm.transform_to_start(flat.xyz, flat.rel, c.tf)
+        tf_new, mat_p_new, degen_new, done_step = _gn_iteration(
+            c.tf, it, c.mat_p, c.degenerate, x_c_j, x_s_j, sharp, flat,
+            last_corner, last_surf, cm.j, cm.l, cm.valid,
+            sm.j, sm.l, sm.m, sm.valid, odo,
+            compute_projector=(it == 0))
+        active = ~c.done
+        return GnCarry(torch.where(active, tf_new, c.tf),
+                       torch.where(active, mat_p_new, c.mat_p),
+                       torch.where(active, degen_new, c.degenerate),
+                       c.done | (active & done_step))
+
     for j in range(refresh_every):
         it = phase * refresh_every + j
         if it >= odo.max_iterations:
             break
-        x_c_j = lm.transform_to_start(sharp.xyz, sharp.rel, tf)
-        x_s_j = lm.transform_to_start(flat.xyz, flat.rel, tf)
-        tf_new, mat_p_new, degen_new, done_step = _gn_iteration(
-            tf, it, mat_p, degenerate, x_c_j, x_s_j, sharp, flat,
-            last_corner, last_surf, cm.j, cm.l, cm.valid,
-            sm.j, sm.l, sm.m, sm.valid, odo,
-            compute_projector=(it == 0))
-        active = ~done
-        tf = torch.where(active, tf_new, tf)
-        mat_p = torch.where(active, mat_p_new, mat_p)
-        degenerate = torch.where(active, degen_new, degenerate)
-        done = done | (active & done_step)
-    return GnCarry(tf, mat_p, degenerate, done)
+        body = functools.partial(iteration, it=it)
+        carry = (body(carry) if j == 0
+                 else conditional.run_if_running(carry.done, body, carry))
+    return carry
+
+
+def gn_phases(carry: GnCarry, sharp: PointSet, flat: PointSet,
+              last_corner: PointSet, last_surf: PointSet,
+              cfg: LoamConfig) -> GnCarry:
+    """Every refresh phase of the GN from ``carry`` (``gn_phase``), each
+    a conditional region: the JAX package's ``lax.while_loop`` over
+    phases."""
+    odo = cfg.odometry
+    for phase in range(n_phases(odo.max_iterations, odo.corresp_refresh_every)):
+        carry = conditional.run_if_running(
+            carry.done, lambda c, p=phase: gn_phase(
+                c, p, sharp, flat, last_corner, last_surf, cfg),
+            carry)
+    return carry
 
 
 def run_gn_static(sharp: PointSet, flat: PointSet, last_corner: PointSet,
                   last_surf: PointSet, tf0: Tensor, cfg: LoamConfig) -> Tensor:
     """The fixed-phase GN: ceil(max_iterations / refresh_every) phases
-    (``gn_phase``), early abort as masked freezing. Returns the refined
-    transform."""
-    odo = cfg.odometry
-    carry = gn_start(tf0, _runs(last_corner, last_surf, odo))
-    for phase in range(n_phases(odo.max_iterations, odo.corresp_refresh_every)):
-        carry = gn_phase(carry, phase, sharp, flat, last_corner, last_surf, cfg)
-    return carry.tf
+    (``gn_phases``), early abort as masked freezing (and, in a CUDA
+    graph, as skipped regions). Returns the refined transform."""
+    carry = gn_start(tf0, _runs(last_corner, last_surf, cfg.odometry))
+    return gn_phases(carry, sharp, flat, last_corner, last_surf, cfg).tf
 
 
 def run_gauss_newton(sharp: PointSet, flat: PointSet, last_corner: PointSet,
@@ -344,14 +367,6 @@ def initial_transform(state: OdometryState, imu: ImuSweepState,
     tf0 = state.transform.clone()
     tf0[3:] += -imu.velo_from_start * cfg.registration.scan_period
     return tf0
-
-
-def gn_begin(state: OdometryState, imu: ImuSweepState,
-             cfg: LoamConfig) -> GnCarry:
-    """The GN's carry before its first phase, stopped when either
-    previous cloud is too small."""
-    return gn_start(initial_transform(state, imu, cfg),
-                    _runs(state.last_corner, state.last_surf, cfg.odometry))
 
 
 def finish(state: OdometryState, feats: SweepFeatures, tf: Tensor,

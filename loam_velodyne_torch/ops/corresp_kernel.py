@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib, lanes
+from loam_velodyne_torch.ops import cuda_lib, lanes, launches
 
 SENTINEL = 1e8          # masked / padding candidate coordinate
 PAD_RING = 1 << 20      # ring of sentinel rows: never inside a bracket
@@ -140,7 +140,7 @@ def corresp_search_lanes(query_xyz: Tensor, ref_xyz: Tensor, ref_ring: Tensor,
     cuda_lib.launch("loam_corresp", dev, *(t.data_ptr() for t in args),
                     keys.data_ptr(), *(t.data_ptr() for t in out), b, nq, m,
                     float(bracket), int(surf_mode))
-    corresp_search.launches += 1
+    launches.count(corresp_search, dev)
     return out
 
 

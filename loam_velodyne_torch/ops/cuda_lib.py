@@ -8,7 +8,9 @@ repository root (listed in ``.gitignore``); the library's file name
 carries a hash of the sources, so an edited kernel is rebuilt and a
 stale library is never loaded. Besides the four kernels of the pipeline
 it holds an empty kernel (``noop``), whose time in a CUDA graph is the
-launch floor the kernels are read against. K1's and K3's entry points
+launch floor the kernels are read against, and the two entry points
+that capture a CUDA-graph conditional node (``if_begin`` / ``if_end``,
+``csrc/cond.cu``; ``models/conditional.py`` uses them). K1's and K3's entry points
 take a lane count: B lanes in one launch (1 for the single-lane call).
 
 Flags: ``-fmad=false`` keeps ``a*b + c`` as a separate multiply and add,
@@ -48,6 +50,8 @@ _SIGNATURES = {
                      _I, _I, _I, _F, _I, _P],
     "loam_grouped_window_knn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "loam_noop": [_P],
+    "loam_if_begin": [_P, _P, _P],
+    "loam_if_end": [ctypes.POINTER(ctypes.c_size_t), _P],
 }
 
 _lib = None
@@ -139,6 +143,28 @@ def noop(device: torch.device) -> None:
     """Launch the empty kernel on ``device``'s current stream (the
     launch floor; it counts nothing)."""
     launch("loam_noop", device)
+
+
+def if_begin(pred: torch.Tensor, body, stream) -> None:
+    """Inside a capture on ``stream``: an IF node on the card's bool
+    ``pred`` (0-d), whose body is captured on the stream ``body`` from
+    now until ``if_end(body)``."""
+    err = lib().loam_if_begin(pred.data_ptr(), body.cuda_stream,
+                              stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"loam_if_begin: CUDA error {err}: the conditional "
+                           "node could not be captured")
+
+
+def if_end(body) -> int:
+    """End the capture of the body begun by ``if_begin``; returns the
+    body's node count."""
+    nodes = ctypes.c_size_t(0)
+    err = lib().loam_if_end(ctypes.byref(nodes), body.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"loam_if_end: CUDA error {err}: the conditional "
+                           "node's body could not be captured")
+    return nodes.value
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

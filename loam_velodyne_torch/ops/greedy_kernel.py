@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib, lanes
+from loam_velodyne_torch.ops import cuda_lib, lanes, launches
 
 LABEL_SHARP = 2
 LABEL_LESS_SHARP = 1
@@ -136,7 +136,7 @@ def greedy_pick_rows_lanes(curv, cand_idx, cand_ok, picked0, left_ext,
                     *(a.data_ptr() for a in args), labels.data_ptr(),
                     marks.data_ptr(), b * rows, w, k_cap, float(threshold),
                     quota, sharp_quota, int(is_corner))
-    greedy_pick_rows.launches += 1
+    launches.count(greedy_pick_rows, curv.device)
     return labels, marks
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib, lanes
+from loam_velodyne_torch.ops import cuda_lib, lanes, launches
 
 
 def grid_windows_plain(cols: torch.Tensor, starts: torch.Tensor,
@@ -59,7 +59,7 @@ def grid_windows_lanes(cols: torch.Tensor, starts: torch.Tensor,
                       device=cols.device)
     cuda_lib.launch("loam_grid_windows", cols.device, cols.data_ptr(),
                     starts.data_ptr(), out.data_ptr(), b, r, c, npad, p_cap)
-    grid_windows.launches += 1
+    launches.count(grid_windows, cols.device)
     return out
 
 

@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from loam_velodyne_torch.ops import cuda_lib, lanes
+from loam_velodyne_torch.ops import cuda_lib, lanes, launches
 
 
 def grouped_window_knn_plain(q_groups: torch.Tensor, windows: torch.Tensor,
@@ -76,7 +76,7 @@ def grouped_window_knn_lanes(q_groups: torch.Tensor, windows: torch.Tensor,
     cuda_lib.launch("loam_grouped_window_knn", q_groups.device,
                     q_groups.data_ptr(), windows.data_ptr(), d2.data_ptr(),
                     cols.data_ptr(), b * t, g, windows.shape[2])
-    grouped_window_knn.launches += 1
+    launches.count(grouped_window_knn, q_groups.device)
     return d2, cols
 
 

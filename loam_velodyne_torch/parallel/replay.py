@@ -22,7 +22,10 @@ without a batching rule raises instead of running lane by lane.
 
 On the card ``make_batched_chunk``'s callable replays the vmapped group
 of io_ratio sweeps as CUDA graphs (``models/graph.py``), the
-counterpart of the JAX package's ``jax.jit(jax.vmap(chunk_one))``;
+counterpart of the JAX package's ``jax.jit(jax.vmap(chunk_one))``: a
+GN phase or iteration there is a conditional node that runs while any
+lane runs (``models/conditional.py::running``, whose vmap rule reduces
+over the lanes), as the vmapped ``lax.while_loop`` over phases does;
 ``make_eager_batched_chunk`` is the same chunk op by op, the plain
 reference (the CPU runs it).
 

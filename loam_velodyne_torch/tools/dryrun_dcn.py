@@ -27,8 +27,9 @@ cross-process determinism; lane 1 is the process's own):
 
 The report holds, per worker: its rank, device and card, the gathered
 positions, each chunk's seconds and the kernels' launches over the
-run (their counters, ``ops/lanes.py``: 0 on the CPU, where the plain
-versions run); and overall whether the gathered arrays are equal over
+run (their counters, ``ops/launches.py``, the graphs' settled from the
+card: 0 on the CPU, where the plain versions run); and overall whether
+the gathered arrays are equal over
 the workers and the largest difference between lane 0 of rank 0 and
 lane 0 of rank 1.
 """
@@ -36,6 +37,7 @@ lane 0 of rank 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,7 +53,7 @@ import torch
 from loam_velodyne_torch.config import LidarConfig, LoamConfig
 from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
-                                     grid_kernel, knn_kernel)
+                                     grid_kernel, knn_kernel, launches)
 from loam_velodyne_torch.parallel import multihost
 from loam_velodyne_torch.parallel.replay import tiny_config
 
@@ -123,6 +125,7 @@ def worker(rank: int, port: int, device: str, preset: str, report: str) -> None:
     case = CASES[preset](rank)
     multihost.init(f"localhost:{port}", N_PROC, rank)
     dev = multihost.default_device() if device == "cuda" else torch.device(device)
+    launches.settle()
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -131,7 +134,8 @@ def worker(rank: int, port: int, device: str, preset: str, report: str) -> None:
                                         sweep_capacity=case.cap, device=dev,
                                         chunk_seconds=secs)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches.settle()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
     t = len(case.lanes[0])
     if positions.shape != (N_PROC * LANES_PER_PROC, t, 3):
         raise AssertionError(f"gathered positions of shape {positions.shape}")
@@ -143,17 +147,25 @@ def worker(rank: int, port: int, device: str, preset: str, report: str) -> None:
            "preset": preset, "lanes": LANES_PER_PROC, "sweeps": t,
            "chunk": case.chunk, "sweep_capacity": case.cap,
            "positions": positions.tolist(), "chunk_seconds": secs,
-           "seconds": seconds, "launches": launches}
+           "seconds": seconds, "launches": counts}
     with open(report + ".part", "w") as f:
         json.dump(out, f)
     os.replace(report + ".part", report)
     torch.distributed.destroy_process_group()
 
 
-def _free_port() -> int:
+@contextlib.contextmanager
+def reserved_port():
+    """A free port on localhost for rank 0's store, held until the block
+    exits: bound with ``SO_REUSEADDR`` and not listening, so the store
+    (which binds with ``SO_REUSEADDR``) can take it, while no other bind
+    and no outgoing connection's source port on the host can. A port
+    found free and let go before the store binds it (seconds later, in a
+    fresh interpreter) may be taken by another process in between."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("localhost", 0))
-        return s.getsockname()[1]
+        yield s.getsockname()[1]
 
 
 def _tail(path: str, n: int = 4000) -> str:
@@ -181,7 +193,11 @@ def run(device: str, preset: str, out: str, timeout: float = 900.0) -> int:
     ``timeout`` seconds), merge their reports into ``out``. Returns the
     exit code."""
     out = os.path.abspath(out)
-    port = _free_port()
+    with reserved_port() as port:
+        return _run(device, preset, out, timeout, port)
+
+
+def _run(device: str, preset: str, out: str, timeout: float, port: int) -> int:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     paths = [f"{out}.rank{r}" for r in range(N_PROC)]

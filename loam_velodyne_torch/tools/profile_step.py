@@ -34,8 +34,11 @@ datasheet preset one chunk of the dynamic cadence as the warm-up (it
 captures the graphs), the stages of the next two sweeps (each
 segment's replays timed between syncs, by segment), and the chunk after
 the warm-up without and with the profiler: ms a sweep, device
-operations, busy share, host syncs, graph launches, stop-flag reads and
-graph replays a sweep.
+operations, busy share, host syncs, graph launches and graph replays a
+sweep. Every profiled run reports the kernel launches that graphs ran a
+sweep (counted on the card, ``ops/launches.py``; the GN's stop is
+decided on the card, so no stop flag is read, and K3's and K4's
+launches are the GN refreshes run, two a refresh).
 
 Prints one JSON object as its last line of output.
 
@@ -60,6 +63,7 @@ from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models import mapping as mapping_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
+from loam_velodyne_torch.ops import launches
 from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import extract_features
 from loam_velodyne_torch.parallel import replay
@@ -146,10 +150,13 @@ def profile_chunk(engine, xyz, mask, trace_dir: str) -> dict:
 def profile_calls(call, restore, dev: torch.device, n: int,
                   trace_dir: str) -> dict:
     """``call`` (n sweeps) once without and, after ``restore``, once with
-    the profiler."""
+    the profiler; with the kernel launches that graphs ran a sweep (none
+    for eager calls, which run every phase)."""
     engine_mod.sync(dev)
+    launches.settle()
     t0 = time.perf_counter()
     call()
+    enqueue_s = time.perf_counter() - t0
     engine_mod.sync(dev)
     plain_s = time.perf_counter() - t0
 
@@ -163,6 +170,9 @@ def profile_calls(call, restore, dev: torch.device, n: int,
     out = {
         "sweeps": n,
         "unprofiled_ms_per_sweep": 1e3 * plain_s / n,
+        # The host's time to enqueue the unprofiled run: near the wall
+        # time, the host sets the pace; well below it, the card does.
+        "host_enqueue_ms_per_sweep": 1e3 * enqueue_s / n,
         "profiled_ms_per_sweep": 1e3 * prof_s / n,
         "launches": sum(r.count for r in rows if r.key in _LAUNCH_APIS),
         "graph_launches": sum(r.count for r in rows
@@ -177,6 +187,8 @@ def profile_calls(call, restore, dev: torch.device, n: int,
             {"op": r.key, "count": r.count, "self_cpu_ms": r.self_cpu_time_total / 1e3}
             for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:12]],
     }
+    out["graphed_launches_per_sweep"] = {
+        k: v / (2 * n) for k, v in launches.settle().items()}
     out.update(device_activity(prof))
     out["busy_share_of_profiled_wall"] = out["device_busy_ms"] / (1e3 * prof_s)
     out["busy_share_of_unprofiled_wall"] = out["device_busy_ms"] / (1e3 * plain_s)
@@ -286,10 +298,10 @@ def segment_times(graphs, call) -> dict:
     times = collections.defaultdict(float)
     run = graphs.run
 
-    def timed(key, segment, also=()):
+    def timed(key, segment):
         engine_mod.sync(graphs.device)
         t0 = time.perf_counter()
-        run(key, segment, also)
+        run(key, segment)
         engine_mod.sync(graphs.device)
         times[key[0]] += 1e3 * (time.perf_counter() - t0)
 
@@ -329,16 +341,18 @@ def run_per_sweep(dev: torch.device, cfg: LoamConfig, cap: int,
             graphs, lambda: engine.step(xyz[i], mask[i]))
     out["segments_ms"] = stages
     restore()
-    reads0, replays0 = graphs.flag_reads, graphs.replays
+    replays0 = graphs.replays
     keys = set(graphs.stats)
     out["chunk"] = profile_calls(
         lambda: engine.run_chunk(xyz[CHUNK:], mask[CHUNK:],
                                  static_cadence=False),
         restore, dev, CHUNK, trace_dir)
     # Two runs of the chunk: the unprofiled and the profiled one.
-    out["chunk"]["flag_reads_per_sweep"] = (graphs.flag_reads - reads0) / (2 * CHUNK)
-    out["chunk"]["graph_replays_per_sweep"] = (graphs.replays - replays0) / (2 * CHUNK)
-    out["chunk"]["captured_inside"] = sorted(map(str, set(graphs.stats) - keys))
+    chunk = out["chunk"]
+    chunk["graph_replays_per_sweep"] = (graphs.replays - replays0) / (2 * CHUNK)
+    chunk["host_syncs_per_sweep"] = {k: v / CHUNK
+                                     for k, v in chunk["syncs"].items()}
+    chunk["captured_inside"] = sorted(map(str, set(graphs.stats) - keys))
     return out
 
 

@@ -1,9 +1,12 @@
 """Two readings of the static chunk that the CUDA graphs rest on.
 
-``--syncs``: one eager static chunk (after a warm-up chunk) on the
-single stream and on B lanes, under
-``torch.cuda.set_sync_debug_mode("warn")``; every synchronizing call is
-listed with the port's frames that made it (a graph cannot capture one).
+``--syncs``: one static chunk (after a warm-up chunk) on the single
+stream and on B lanes, eager and through the CUDA graphs, and two
+per-sweep steps through the per-sweep graphs (after two that captured
+them), under ``torch.cuda.set_sync_debug_mode("warn")``; every
+synchronizing call is listed with the port's frames that made it (a
+graph cannot capture one, and the graphed forms decide the GN's stop
+on the card, so none of them may read back).
 
 ``--eigh``: the eager 48-sweep replay of the bench sequence (VLP-16,
 chunks of 8) with the degeneracy projector's eigendecomposition in
@@ -127,12 +130,9 @@ def eigh_forms(dev: torch.device) -> dict:
     return out
 
 
-def sync_sites(dev: torch.device) -> dict:
-    """Synchronizing calls of one eager static chunk of 2 sweeps after a
-    warm-up chunk, single stream and LANES lanes, by call site."""
-    cfg = LoamConfig.preset("VLP-16")
-    xyz, mask, _ = synthetic.bench_sequence(4, cfg.lidar, SWEEP_CAP)
-    xyz, mask = torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+def _sites_of(call, dev: torch.device) -> dict:
+    """The synchronizing calls that ``call()`` makes, by call site (the
+    port's three innermost frames)."""
     sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -142,36 +142,68 @@ def sync_sites(dev: torch.device) -> dict:
         sites[" <- ".join(f"{f.filename.split('loam_velodyne_torch/')[-1]}:"
                           f"{f.lineno}" for f in frames[::-1][:3])] += 1
 
-    single = lambda s, x, m, c: engine_mod.run_chunk(  # noqa: E731
-        s, RawSweep(x, m), cfg, c)
-    batched = replay.make_eager_batched_chunk(cfg)
-    runs = {"single": (single, engine_mod.EngineState.create(cfg, dev),
-                       xyz, mask),
-            "lanes": (lambda s, x, m, c: batched(s, RawSweep(x, m), c),
-                      replay.create_states(cfg, LANES, dev),
-                      xyz[None].expand(LANES, -1, -1, -1).contiguous(),
-                      mask[None].expand(LANES, -1, -1).contiguous())}
-    out = {}
-    for name, (chunk, state, x, m) in runs.items():
-        ax = x.dim() - 3                       # the sweep axis
-        part = (lambda t, s: t.narrow(ax, s, 2))  # noqa: E731
-        state, _ = chunk(state, part(x, 0), part(m, 0), engine_mod.Cadence())
-        engine_mod.sync(dev)
-        sites.clear()
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
+    engine_mod.sync(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
             if dev.type == "cuda":
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                chunk(state, part(x, 2), part(m, 2),
-                      engine_mod.Cadence(2, 1, True))
-            finally:
-                if dev.type == "cuda":
-                    torch.cuda.set_sync_debug_mode(0)
-        engine_mod.sync(dev)
-        out[name] = {k: v for k, v in sites.items() if k}
-        print(f"syncs {name}: {json.dumps(out[name])}", flush=True)
+                torch.cuda.set_sync_debug_mode(0)
+    engine_mod.sync(dev)
+    return {k: v for k, v in sites.items() if k}
+
+
+def sync_sites(dev: torch.device) -> dict:
+    """Synchronizing calls of one static chunk of 2 sweeps after a
+    warm-up chunk, single stream and LANES lanes, eager and (on the card)
+    through the CUDA graphs, and of two per-sweep steps through the
+    per-sweep graphs after two that captured them, by call site. Inside
+    the graphed forms the GN's stop is decided on the card (conditional
+    nodes): none may read back."""
+    cfg = LoamConfig.preset("VLP-16")
+    xyz, mask, _ = synthetic.bench_sequence(4, cfg.lidar, SWEEP_CAP)
+    xyz, mask = torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+    lx = xyz[None].expand(LANES, -1, -1, -1).contiguous()
+    lm = mask[None].expand(LANES, -1, -1).contiguous()
+    first, second = slice(0, 2), slice(2, 4)
+    batched = replay.make_eager_batched_chunk(cfg)
+    out = {}
+
+    def chunks(name, chunk, state, x, m):
+        ax = x.dim() - 3                       # the sweep axis
+        part = (lambda t, s: t.narrow(ax, s.start, 2))  # noqa: E731
+        state, _ = chunk(state, part(x, first), part(m, first),
+                         engine_mod.Cadence())
+        out[name] = _sites_of(lambda: chunk(state, part(x, second),
+                                            part(m, second),
+                                            engine_mod.Cadence(2, 1, True)),
+                              dev)
+
+    chunks("single", lambda s, x, m, c: engine_mod.run_chunk(
+        s, RawSweep(x, m), cfg, c), engine_mod.EngineState.create(cfg, dev),
+        xyz, mask)
+    chunks("lanes", lambda s, x, m, c: batched(s, RawSweep(x, m), c),
+           replay.create_states(cfg, LANES, dev), lx, lm)
+    if dev.type == "cuda":
+        engine = engine_mod.Engine(cfg, dev)
+        engine.run_chunk(xyz[first], mask[first])
+        out["single_graphed"] = _sites_of(
+            lambda: engine.run_chunk(xyz[second], mask[second]), dev)
+        graphed = replay.make_batched_chunk(cfg)
+        chunks("lanes_graphed",
+               lambda s, x, m, c: graphed(s, RawSweep(x, m), c),
+               replay.create_states(cfg, LANES, dev), lx, lm)
+        engine = engine_mod.Engine(cfg, dev)
+        for i in range(2):
+            engine.step(xyz[i], mask[i])
+        out["per_sweep_graphed"] = _sites_of(
+            lambda: [engine.step(xyz[i], mask[i]) for i in range(2, 4)], dev)
+    for name, sites in out.items():
+        print(f"syncs {name}: {json.dumps(sites)}", flush=True)
     return out
 
 

@@ -11,10 +11,15 @@ At the port's ``tiny_config()`` on ``cuda:0``: ``Engine.run_chunk``
 ``make_batched_chunk``'s callable (graphed) against
 ``make_eager_batched_chunk`` at B = 2 with and without IMU windows, over
 two chunks from a fresh state (the first group, then steady groups):
-outputs and state bit-equal, the four kernels' launch counts equal. A
+outputs and state bit-equal. The eager chunk runs every GN phase,
+masked; the graphs skip a phase, and an iteration after a phase's
+first, once no lane runs (conditional nodes), so their launches,
+counted on the card (``ops/launches.py``), are the eager chunk's
+launches whose regions' predicates all held (``launches.needed``), no
+more than the eager chunk's. Every graph holds conditional nodes. A
 graphed chunk after the first runs under
-``torch.cuda.set_sync_debug_mode("error")``. The returned state is the
-caller's own: a later call leaves it as it was.
+``torch.cuda.set_sync_debug_mode("error")``. The returned state
+is the caller's own: a later call leaves it as it was.
 
 Tolerance: none. A graph replays the eager chunk's kernels on the same
 inputs.
@@ -28,6 +33,7 @@ from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.io.imu import ImuTracker
 from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models import graph as graph_mod
+from loam_velodyne_torch.ops import launches
 from loam_velodyne_torch.ops.imu import ImuWindow
 from loam_velodyne_torch.ops.scan import RawSweep
 from loam_velodyne_torch.parallel import replay
@@ -67,12 +73,20 @@ def _windows(dev, lanes: int):
 
 
 def _launches():
+    launches.settle()
     return [f.launches for f in graph_mod.COUNTED]
 
 
 def _zero():
+    launches.settle()
     for f in graph_mod.COUNTED:
         f.launches = 0
+
+
+def _needed(tally) -> list:
+    """A ``launches.needed`` block's tally, by ``graph.COUNTED``."""
+    got = tally()
+    return [got.get(f.__name__, 0) for f in graph_mod.COUNTED]
 
 
 def _equal_trees(a, b):
@@ -89,14 +103,16 @@ def test_engine_graphed_equals_eager():
     _zero()
     state, cadence, eager = engine_mod.EngineState.create(cfg, dev), \
         engine_mod.Cadence(), []
-    for c in range(CHUNKS):
-        s = slice(c * K, (c + 1) * K)
-        state, o = engine_mod.run_chunk(state, RawSweep(xyz[s], mask[s]), cfg,
-                                        cadence)
-        eager.append(o.packed)
-        for _ in range(K):
-            cadence = cadence.advance(cfg)
+    with launches.needed() as needed:
+        for c in range(CHUNKS):
+            s = slice(c * K, (c + 1) * K)
+            state, o = engine_mod.run_chunk(state, RawSweep(xyz[s], mask[s]),
+                                            cfg, cadence)
+            eager.append(o.packed)
+            for _ in range(K):
+                cadence = cadence.advance(cfg)
     eager_launches = _launches()
+    want_launches = _needed(needed)
     _zero()
     engine = engine_mod.Engine(cfg, dev)
     graphed = []
@@ -110,12 +126,14 @@ def test_engine_graphed_equals_eager():
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert _launches() == eager_launches and all(eager_launches)
+    assert _launches() == want_launches and all(eager_launches)
+    assert all(w <= e for w, e in zip(want_launches, eager_launches))
     assert torch.equal(torch.cat(graphed), torch.cat(eager))
     _equal_trees(engine.state, state)
     assert len(engine.graphs.stats) == 2        # the first and steady groups
     for st in engine.graphs.stats.values():
         assert st.nodes and st.pool_bytes > 0
+        assert st.conditional_nodes > 0
 
 
 @pytest.mark.parametrize("imu", [False, True], ids=["no_imu", "imu"])
@@ -129,18 +147,22 @@ def test_batched_graphed_equals_eager(imu):
         _zero()
         states, cadence, rows = replay.create_states(cfg, B, dev), \
             engine_mod.Cadence(), []
-        for c in range(CHUNKS):
-            s = slice(c * K, (c + 1) * K)
-            w = None if wins is None else ImuWindow(*(a[:, s] for a in wins))
-            states, o = chunk(states, RawSweep(xyz[:, s], mask[:, s]), cadence, w)
-            rows.append(o.packed)
-            for _ in range(K):
-                cadence = cadence.advance(cfg)
+        with launches.needed() as needed:
+            for c in range(CHUNKS):
+                s = slice(c * K, (c + 1) * K)
+                w = None if wins is None else ImuWindow(*(a[:, s] for a in wins))
+                states, o = chunk(states, RawSweep(xyz[:, s], mask[:, s]),
+                                  cadence, w)
+                rows.append(o.packed)
+                for _ in range(K):
+                    cadence = cadence.advance(cfg)
         torch.cuda.synchronize()
-        outs[name] = (torch.cat(rows, 1), states, _launches())
+        outs[name] = (torch.cat(rows, 1), states, _launches(), _needed(needed))
     assert torch.equal(outs["graphed"][0], outs["eager"][0])
     _equal_trees(outs["graphed"][1], outs["eager"][1])
-    assert outs["graphed"][2] == outs["eager"][2] and all(outs["eager"][2])
+    eager_launches = outs["eager"][2]
+    assert outs["graphed"][2] == outs["eager"][3]
+    assert all(eager_launches)
 
 
 def test_returned_state_is_the_callers():

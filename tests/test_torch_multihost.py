@@ -139,9 +139,11 @@ def test_batched_step_matches_the_jax_dynamic_batched_step():
 _REFUSALS = textwrap.dedent("""
     import json, sys
     import numpy as np
+    import torch
     from loam_velodyne_torch.parallel import multihost
     from loam_velodyne_torch.parallel.replay import tiny_config
     rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.set_num_threads(1)
     multihost.init(f"localhost:{port}", 2, rank)
     cfg = tiny_config()
     sweep = np.zeros((16, 3), np.float32)
@@ -160,16 +162,17 @@ _REFUSALS = textwrap.dedent("""
 def test_replay_global_refuses_unequal_lanes_and_partial_chunks(tmp_path):
     """Both processes refuse, before any sweep runs: unequal lane counts
     (1 against 2), a length that is not a multiple of the chunk (6 of
-    4), and a CUDA device where there is none."""
-    port = dryrun_dcn._free_port()
+    4), and a CUDA device where there is none. The store's port is held
+    until both have exited (``dryrun_dcn.reserved_port``)."""
     outs = [tmp_path / f"rank{r}.json" for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _REFUSALS, str(r), str(port), str(outs[r])],
-        cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(2)]
-    for p in procs:
-        _, err = p.communicate(timeout=120)
-        assert p.returncode == 0, err[-4000:]
+    with dryrun_dcn.reserved_port() as port:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _REFUSALS, str(r), str(port), str(outs[r])],
+            cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-4000:]
     for out in outs:
         with open(out) as f:
             errors = json.load(f)
@@ -184,7 +187,8 @@ def test_replay_global_refuses_unequal_lanes_and_partial_chunks(tmp_path):
 def test_replay_global_chooses_the_card_by_default():
     """Without ``device`` the process's card is chosen
     (``cuda:{rank % device_count}``); without a card, an error."""
-    multihost.init(f"localhost:{dryrun_dcn._free_port()}", 1, 0)
+    with dryrun_dcn.reserved_port() as port:
+        multihost.init(f"localhost:{port}", 1, 0)
     try:
         if torch.cuda.is_available():
             assert multihost.default_device() == torch.device("cuda:0")

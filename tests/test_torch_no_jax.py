@@ -94,7 +94,8 @@ assert pos.shape == (2, 2, 3)
 # The multi-process replay, in a one-process gloo group.
 from loam_velodyne_torch.parallel import multihost
 from loam_velodyne_torch.tools import dryrun_dcn
-multihost.init(f"localhost:{dryrun_dcn._free_port()}", 1, 0)
+with dryrun_dcn.reserved_port() as port:
+    multihost.init(f"localhost:{port}", 1, 0)
 gpos = multihost.replay_global(cfg, [[xyz[i][mask[i]] for i in range(2)]] * 2,
                                chunk=2, sweep_capacity=256, device="cpu")
 chip_smoke.torch.distributed.destroy_process_group()

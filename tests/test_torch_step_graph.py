@@ -2,28 +2,32 @@
 rests on.
 
 On the card ``Engine.step`` replays the per-sweep step as CUDA graphs of
-its segments (``graph.SweepGraphs``): the front, odometry's first sweep
-or its GN start, the GN phases, odometry's finish, mapping's prepare
-and phases, and the tail, each graph captured once per key and replayed
-on the slots it reads and writes, with one stop flag read before each
-GN phase. Here ``EagerGraphs`` stands in for the capture: a key's
+its segments (``graph.SweepGraphs``): the front, odometry (its first
+sweep, or its GN with its start and end), mapping's prepare with its
+GN, and the tail, each graph captured once per key and replayed on the
+slots it reads and writes; each GN phase, and each iteration after a
+phase's first, is a conditional node that the card skips once the GN
+has stopped. Here ``EagerGraphs`` stands in for the capture: a key's
 segment is warmed up once (allocating the slots it is the first to
 write, as on the card) and each replay runs the segment body (the same
-function the card captures, with the same slot copies) eagerly. At the
-port's ``tiny_config()`` with GNs of three phases (the last one short):
+function the card captures, with the same slot copies) eagerly, its
+conditional nodes through tests/test_torch_conditional.py's stand-in
+(a region skipped when its predicate is false; that file holds the
+regions to leaving nothing born inside them behind). At the port's ``tiny_config()``
+with GNs of three phases (the last one short):
 
 - the segments composed this way give the eager dynamic ``step``'s
   packed rows and state bit for bit, over sequences with odometry's
   first sweep, mapping and no mapping sweeps, with and without IMU
   windows, GNs that stop inside a phase, GNs that run every phase
   (abort thresholds at 0) and GNs that never start (clouds too small),
-  with as many correspondence and k-NN searches as the eager step and
-  each key captured once;
+  running the eager step's correspondence and k-NN searches (none in a
+  skipped region), and each key captured once;
 - no segment reads back to the host (``HostReads`` of
   tests/test_torch_graph.py around every replay), and a ``bool()``
   planted in a segment is caught;
-- the host reads at most one stop flag a GN phase, against the eager
-  step's one an iteration;
+- the host reads no stop flag in a graphed sweep (``HostReads`` around
+  the whole step), against the eager step's one a GN iteration;
 - a state written to ``Engine.state`` between sweeps (the driver's
   archive compaction, ``load_state``, a resume from a checkpoint)
   reaches the segments' inputs, and a segment output that aliases a
@@ -39,6 +43,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from test_torch_conditional import _Searches, host_conditionals, uncounted
 from test_torch_graph import HostReads
 
 from loam_velodyne_torch.io import synthetic
@@ -47,7 +52,6 @@ from loam_velodyne_torch.io.imu import ImuTracker
 from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models import graph as graph_mod
 from loam_velodyne_torch.models import odometry as odometry_mod
-from loam_velodyne_torch.ops import neighbors
 from loam_velodyne_torch.parallel import replay
 
 torch.set_num_threads(1)
@@ -77,7 +81,9 @@ def _cfg(case: str = "stops"):
 class EagerGraphs(graph_mod.SweepGraphs):
     """``SweepGraphs`` whose graphs are their segment bodies run eagerly:
     a key is 'captured' once (the segment's warm-up), then every replay
-    runs the body the card would have captured, under ``HostReads``."""
+    runs the body the card would have captured, under ``HostReads``, its
+    conditional nodes through the stand-in. The warm-up's searches are
+    not counted: the card's replays run the searches."""
 
     def __init__(self):
         super().__init__("cpu")
@@ -86,12 +92,9 @@ class EagerGraphs(graph_mod.SweepGraphs):
 
     def _record(self, warm, body, what):
         self.captured.append(what)
-        warm()
-        return graph_mod._Captured(_Replay(body, self.host_reads), None,
-                                   (0,) * len(graph_mod.COUNTED), None)
-
-    def _read(self, flag):
-        return bool(flag)
+        with uncounted():
+            warm()
+        return graph_mod._Captured(_Replay(body, self.host_reads), None, None)
 
 
 class _Replay:
@@ -99,7 +102,7 @@ class _Replay:
         self.body, self.host_reads = body, host_reads
 
     def replay(self):
-        with HostReads() as mode:
+        with HostReads() as mode, host_conditionals(poison=False):
             self.body()
         self.host_reads += mode.hits
 
@@ -115,26 +118,6 @@ def inputs():
     return torch.from_numpy(xyz), torch.from_numpy(mask), wins
 
 
-class _Searches:
-    """Counts the correspondence (K3) and k-NN (K4) searches."""
-
-    def __init__(self, monkeypatch):
-        self.n = {"corresp": 0, "knn": 0}
-        for name, fn in (("corresp", neighbors.corresp_search),
-                         ("knn", neighbors.grouped_window_knn)):
-            monkeypatch.setattr(neighbors, fn.__name__, self._counted(name, fn))
-
-    def _counted(self, name, fn):
-        def counted(*args, **kwargs):
-            self.n[name] += 1
-            return fn(*args, **kwargs)
-        return counted
-
-    def take(self) -> dict:
-        n, self.n = self.n, {"corresp": 0, "knn": 0}
-        return n
-
-
 def _run(cfg, inputs, imu: bool, graphs=None):
     """K sweeps from a fresh state, eager (``graphs`` None) or composed
     through ``graphs``; returns the packed rows, the state and the host's
@@ -145,16 +128,15 @@ def _run(cfg, inputs, imu: bool, graphs=None):
     for i in range(K):
         raw = engine_mod.scan_mod.RawSweep(xyz[i], mask[i])
         win = wins[i] if imu else None
-        if graphs is None:
-            with HostReads() as mode:
-                state, outs = engine_mod.step(state, raw, cfg, "auto", cadence, win)
-            reads.append(sum(h.startswith("aten._local_scalar_dense")
-                             for h in mode.hits))
-        else:
-            before = graphs.flag_reads
-            state, outs = engine_mod.step_graphed(graphs, state, raw, cfg,
-                                                  cadence, win)
-            reads.append(graphs.flag_reads - before)
+        with HostReads() as mode:
+            if graphs is None:
+                state, outs = engine_mod.step(state, raw, cfg, "auto",
+                                              cadence, win)
+            else:
+                state, outs = engine_mod.step_graphed(graphs, state, raw, cfg,
+                                                      cadence, win)
+        reads.append(sum(h.startswith("aten._local_scalar_dense")
+                         for h in mode.hits))
         rows.append(outs.packed)
         cadence = cadence.advance(cfg)
     return torch.stack(rows), state, reads
@@ -178,29 +160,32 @@ def test_segments_compose_to_the_eager_step(inputs, monkeypatch, case, imu):
     want = searches.take()
     graphs = EagerGraphs()
     rows, state, reads = _run(cfg, inputs, imu, graphs)
+    ran = searches.take()
     assert torch.equal(rows, want_rows)
     assert _leaves_equal(state, want_state)
-    # As many searches as the eager step, besides the warm-ups of the
-    # phases, captured together with their GN's start at sweep 1.
-    assert searches.take() == {"corresp": want["corresp"] + 2 * ODO_PHASES,
-                               "knn": want["knn"] + 2 * MAP_PHASES}
+    # The searches the replays run (none in a skipped region): the eager
+    # step's, two a refresh (corner and surf; a corner and a surf k-NN).
+    assert ran == want
     # Mapping ran on the odd sweeps; every key was captured once.
     assert rows[:, 18].tolist() == [float(i % 2) for i in range(K)]
     assert len(graphs.captured) == len(set(graphs.captured))
-    # The flag reads: at most one a GN phase on each sweep (odometry on
-    # sweeps 1-5, mapping on 1, 3 and 5); eagerly one a GN iteration
-    # and one before it.
-    most = [0] + [ODO_PHASES + MAP_PHASES * (i % 2) for i in range(1, K)]
-    assert all(0 < n <= m for n, m in zip(reads[1:], most[1:]))
-    assert all(n <= e for n, e in zip(reads, eager_reads))
+    # No stop flag is read on the host in a graphed sweep; eagerly one a
+    # GN iteration and one before it (odometry on sweeps 1-5, mapping on
+    # 1, 3 and 5).
+    assert reads == [0] * K and graphs.host_reads == []
     if case == "all_phases":
-        assert reads[1:] == most[1:] or sum(reads) < sum(most)
-        assert sum(eager_reads) > 3 * sum(reads)
+        # Every GN that starts runs all its phases.
+        assert ran["corresp"] % (2 * ODO_PHASES) == 0
+        assert ran["knn"] % (2 * MAP_PHASES) == 0
+        assert 0 < ran["knn"] and 0 < ran["corresp"]
+        assert all(e > 0 for e in eager_reads[1:])
     elif case == "too_small":
-        assert reads == eager_reads == [0] + [1 + i % 2 for i in range(1, K)]
+        assert eager_reads == [0] + [1 + i % 2 for i in range(1, K)]
         assert want == {"corresp": 0, "knn": 0}
+        assert ran == {"corresp": 0, "knn": 0}
     else:
-        assert sum(reads) < sum(eager_reads)
+        assert all(e > 0 for e in eager_reads[1:])
+        assert 0 < ran["corresp"] < 2 * ODO_PHASES * (K - 1)
 
 
 def test_no_segment_reads_back(inputs):

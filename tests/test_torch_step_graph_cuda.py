@@ -13,10 +13,13 @@ At the configuration of tests/test_torch_step_graph.py (the port's
 iteration), and ``Engine.run_chunk(static_cadence=False)`` against the
 module function ``engine.run_chunk``, with and without IMU windows,
 from a fresh state: packed rows and state bit-equal, the four kernels'
-launch counts equal. Each key is captured at its first sweep: a second
-engine of the configuration, on the same sweeps, captures nothing and
-runs its sweeps after the first two under
-``torch.cuda.set_sync_debug_mode("error")``.
+launch counts equal (the graphs' counted on the card and settled,
+``ops/launches.py``), and each GN key (odometry's, and
+mapping's) holds conditional nodes, one for each phase and for each
+iteration after a phase's first. Each key is captured at its first
+sweep: a second engine of the configuration, on the same sweeps,
+captures nothing and runs its sweeps after the first two under
+``torch.cuda.set_sync_debug_mode("error")``, reading nothing back.
 
 Tolerance: none. A graph replays the eager step's kernels on the same
 inputs.
@@ -25,12 +28,13 @@ inputs.
 import numpy as np
 import pytest
 import torch
-from test_torch_step_graph import CAP, K, _cfg
+from test_torch_step_graph import CAP, K, MAP_PHASES, ODO_PHASES, _cfg
 
 from loam_velodyne_torch.io import synthetic
 from loam_velodyne_torch.io.imu import ImuTracker
 from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models import graph as graph_mod
+from loam_velodyne_torch.ops import launches
 from loam_velodyne_torch.ops.imu import ImuWindow
 from loam_velodyne_torch.ops.scan import RawSweep
 
@@ -56,10 +60,12 @@ def _inputs(dev):
 
 
 def _launches():
+    launches.settle()
     return [f.launches for f in graph_mod.COUNTED]
 
 
 def _zero():
+    launches.settle()
     for f in graph_mod.COUNTED:
         f.launches = 0
 
@@ -115,6 +121,11 @@ def test_step_graphed_equals_eager(imu):
             assert set(graphs.stats) == keys
     for st in graphs.stats.values():
         assert st.nodes and st.pool_bytes > 0
+    # Odometry 12 iterations refreshed every 5, mapping 5 every 2: a node
+    # a phase and one for each iteration after a phase's first.
+    odo, mapping = graphs.stats[("odometry", True)], graphs.stats[("mapping",)]
+    assert odo.conditional_nodes == ODO_PHASES + (12 - ODO_PHASES)
+    assert mapping.conditional_nodes == MAP_PHASES + (5 - MAP_PHASES)
 
 
 def test_dynamic_chunk_graphed_equals_eager():
