@@ -93,7 +93,8 @@ runs the eager chunk (the module function ``engine.run_chunk``,
 ``make_batched_chunk`` returning the eager chunk), so that its
 recorders see every kernel call, and holds each call to its plain twin
 there; the multi-process workers run the graphs, held bit-equal to
-this process's eager lanes.
+this process's eager lanes, and so do the batched phase's two
+single-stream references (lanes 0 and 5, one engine's graphs).
 
 Then the per-sweep graphs (``run_sweep_graphs``,
 ``models/engine.py::step_graphed``): the dynamic per-sweep step
@@ -114,6 +115,25 @@ entry-point, trajectory-gate, oracle and bench phases step the eager
 path (``device_split.eager_steps``): on the card
 ``Engine.step`` replays these graphs, which run without Python, and
 those phases count or record the kernel calls.
+
+Then the batched per-sweep graphs (``run_batched_step_graphs``,
+``parallel/replay.py::make_batched_step``): the batched step, each
+lane's first sweep and mapping gate decided on the card from its own
+counters and each GN while any lane runs, replayed as CUDA graphs (one
+graph a sweep shape, whatever the lanes' starts) at VLP-16 with 8
+lanes. (a) The graph phase's 8 distinct lanes through
+``make_batched_chunk(static_cadence=False)`` over the same 24 sweeps:
+every packed column bit-equal to that phase's graphed rows, and the
+same launches. (b) Lanes 0-3 from their states after their first sweep
+beside lanes 4-7 fresh, 6 sweeps (half the lanes map in each):
+bit-equal, rows and states, to ``make_eager_batched_step`` on the same
+input, the launches those the eager run needed, zero loss counters, and
+every lane-form call of the eager run held bit-equal to its plain
+twin. (c) The last chunk of (a) and the last 2 sweeps of (b) run under
+``torch.cuda.set_sync_debug_mode("error")``. It prints the graph's
+set-up, nodes, conditional nodes and pool bytes and each run's rate
+beside the eager one; the script's total seconds and its margin to
+the 1,200 s limit are printed before the card's line.
 
 Then three phases. The multi-process replay (``run_multiprocess``,
 ``parallel/multihost.py`` through ``tools/dryrun_dcn.py``): two fresh
@@ -151,9 +171,11 @@ under ``per_sweep_graphs``, on the entry points under
 ``entry_points`` and on the HDL-64E run under ``hdl64e``, the launch
 floor, and the phases' numbers under ``per_sweep``, ``entry_points``,
 ``trajectory_gates``, ``batched``, ``graph``, ``sweep_graphs``,
-``multiprocess``, ``sized``, ``oracle`` and ``bench``; every row has its launches and calls in the
+``batched_step_graphs``, ``multiprocess``, ``sized``, ``oracle`` and
+``bench``; every row has its launches and calls in the
 bench phase under ``bench``; a lane form's row has its launches over
-the batched phase, its engine calls under ``batched_calls`` and each
+the batched phase, its engine calls under ``batched_calls``, its
+launches on the batched step's graphs under ``batched_step`` and each
 worker's launches
 under ``multiprocess``; a single-lane row its launches and engine calls
 in the sized run under ``sized`` and its launches in the oracle run
@@ -262,6 +284,15 @@ LANE_PREFIX_TOL = 1e-6
 LANE_TOL = 0.03
 # The graph phase's batched depth (the batched phase's, LANE_SWEEPS).
 GRAPH_LANE_SWEEPS = LANE_SWEEPS
+# The batched per-sweep graph phase: (b) lanes 0 to STEP_AHEAD - 1
+# start after their first sweep, beside the rest fresh, for STEP_SWEEPS
+# sweeps, the last STEP_NO_SYNC_SWEEPS of them under sync debug mode
+# "error".
+STEP_AHEAD = LANES // 2
+STEP_SWEEPS = 6
+STEP_NO_SYNC_SWEEPS = 2
+# The limit the driver runs this script in, whose margin it prints.
+LIMIT_S = 1200
 # Sweeps of the per-sweep graph phase's profiled run (its host syncs):
 # enough that a synchronizing call made once in the run (set-up) tells
 # apart from one made each sweep.
@@ -784,30 +815,31 @@ def _shapes(args: tuple) -> str:
                      if isinstance(x, torch.Tensor))
 
 
-def batched_calls(calls: dict) -> dict:
+def batched_calls(calls: dict, timed: bool = True, label: str = "batched"
+                  ) -> dict:
     """Each recorded lane-form call against its plain twin (bit-equal)
-    and, for the four kernels, its time in a CUDA graph, grouped by the
-    shapes of its tensor arguments."""
+    and, for the four kernels when ``timed``, its time in a CUDA graph,
+    grouped by the shapes of its tensor arguments."""
     out = {}
     for name, args_list in calls.items():
         fn, twin = LANE_OPS[name].lanes, LANE_TWINS[name]
         groups = {}
         for i, a in enumerate(args_list):
             got, want = _outputs(name, fn(*a)), _outputs(name, twin(*a))
-            _require_equal(f"{name} batched call {i}", got, want)
+            _require_equal(f"{name} {label} call {i}", got, want)
             groups.setdefault(_shapes(a), []).append(
-                None if name == "segment_sum_lanes" else
+                None if name == "segment_sum_lanes" or not timed else
                 kernel_times.graph_ms(lambda a=a: fn(*a), 10, 5))
         out[name] = [{"shapes": k, "calls": len(v),
                       "kernel_ms_mean": None if v[0] is None else sum(v) / len(v),
                       "kernel_ms_max": None if v[0] is None else max(v)}
                      for k, v in groups.items()]
         for o in out[name]:
-            timed = ("" if o["kernel_ms_mean"] is None else
+            times = ("" if o["kernel_ms_mean"] is None else
                      f"; in a graph {o['kernel_ms_mean']:.4f} ms a call "
                      f"(max {o['kernel_ms_max']:.4f})")
-            print(f"batched {name} [{o['shapes']}]: {o['calls']} calls, each "
-                  f"bit-equal to the plain twin{timed}", flush=True)
+            print(f"{label} {name} [{o['shapes']}]: {o['calls']} calls, each "
+                  f"bit-equal to the plain twin{times}", flush=True)
     return out
 
 
@@ -836,7 +868,9 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
     are set to 0 before each run and read after it; every lane-form call
     of (b) is recorded and, after the counts are read, held to its
     plain twin. All readings are printed before any gate is applied.
-    Every run is the eager batched chunk. Returns the phase's numbers
+    Every batched run is the eager batched chunk; the single streams of
+    (b) run the static chunk's CUDA graphs (``Engine.run_chunk``), one
+    engine's, captured once. Returns the phase's numbers
     and the distinct run's (xyz, mask, packed rows, chunk seconds, the
     launches a graphed run of it makes, ``launch_counts.needed``)."""
     t_phase = time.perf_counter()
@@ -935,13 +969,17 @@ def run_batched(dev, card: str, replay_packed: np.ndarray,
           f"{[round(LANES * CHUNK / x, 3) for x in secs[1:]]})", flush=True)
     if max(ates) > ATE_GATE_M or losses.any():
         failures.append(f"distinct lanes: ATE {ates}, losses {losses}")
-    singles = {}
+    # The single streams through the static chunk's graphs (which the
+    # graph phase holds bit-equal to the eager chunk), one engine's, so
+    # captured once.
+    singles, single = {}, Engine(cfg, dev)
     for i in SINGLE_LANES:
-        one, _ = replay(Engine(cfg, dev), xyz_b[i], mask_b[i])
+        single.load_state(engine_mod.EngineState.create(cfg, dev))
+        one, _ = replay(single, xyz_b[i], mask_b[i], graphed=True)
         one = one.cpu().numpy()
         singles[i] = _lane_devs(packed[i], one)
         print(f"batched (b): lane {i} against a single-stream run of its "
-              f"sequence: largest pose deviation by sweep "
+              f"sequence (graphed): largest pose deviation by sweep "
               f"{_fmt(singles[i][0])}; flags and loss counters equal: "
               f"{np.array_equal(packed[i, :, 18:27], one[:, 18:27])}",
               flush=True)
@@ -1004,7 +1042,8 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
     capture and instantiation seconds, nodes and pool memory, the
     batched run's peak memory, and the sweeps/s graphed against eager on
     the same sweeps in this process (after the first chunk). Returns the
-    launches by run and the phase's numbers."""
+    launches by run, the phase's numbers and the batched run's packed
+    rows."""
     t_phase = time.perf_counter()
     cfg = LoamConfig.preset("VLP-16")
     xyz, mask, gt = synthetic.bench_sequence(N_SWEEPS, cfg.lidar, SWEEP_CAP)
@@ -1113,7 +1152,8 @@ def run_graph(dev, card: str, replay_packed: np.ndarray, replay_chunk_ms: list,
           flush=True)
     if failures:
         raise AssertionError("graph phase: " + "; ".join(failures))
-    return {"single": single_launches, "batched": batched_launches}, out
+    return ({"single": single_launches, "batched": batched_launches}, out,
+            packed_b)
 
 
 def _sweep_graph_stats(graphs, card: str) -> list:
@@ -1276,6 +1316,214 @@ def run_sweep_graphs(dev, card: str, cfg: LoamConfig, xyz: np.ndarray,
     if failures:
         raise AssertionError("sweep graph phase: " + "; ".join(failures))
     return launches, out
+
+
+@contextlib.contextmanager
+def _sync_debug(on: bool):
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block when
+    ``on``: a synchronizing call there raises."""
+    if on:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def _same_trees(a, b) -> bool:
+    la, lb = graph_mod.leaves(a), graph_mod.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def run_batched_step_graphs(dev, card: str, distinct: tuple,
+                            graph_rows: np.ndarray, graph_launches: dict,
+                            graph_rate: float) -> tuple[dict, dict]:
+    """The batched per-sweep step (``parallel/replay.py::make_batched_step``:
+    vmap over ``engine.lane_step``, each lane's first sweep and mapping
+    gate decided on the card from its own counters, each GN while any
+    lane runs) replayed as CUDA graphs (``batched_step_graphed``: one
+    graph a sweep shape, whatever the lanes' starts), through the entry
+    points a user calls, at full VLP-16 width with LANES lanes, the
+    launch counts set to 0 before each run and read after it.
+    (a) Aligned lanes: the graph phase's LANES distinct lanes
+    (``distinct``: their sweeps) through ``make_batched_chunk(
+    static_cadence=False)`` over the sweeps that phase replays, in
+    chunks of CHUNK: every packed column bit-equal to that phase's
+    graphed rows (``graph_rows``) and the launches equal to its
+    (``graph_launches``). (b) Mixed starts: lanes 0 to STEP_AHEAD - 1
+    from their states after their first sweep (a graphed step of the
+    LANES lanes' sweep 0), beside the rest fresh, so that in every sweep
+    half the lanes map and, in the first, half take their first-sweep
+    branch; STEP_SWEEPS sweeps through ``make_batched_step``, bit-equal
+    (rows and states) to ``make_eager_batched_step`` on the same input,
+    launches equal to those the eager run needed (``launches.needed``),
+    zero loss counters on every lane, and every lane-form call of the
+    eager run recorded and held bit-equal to its plain twin. (c) The
+    last chunk of (a) and the last STEP_NO_SYNC_SWEEPS sweeps of (b)
+    run under ``torch.cuda.set_sync_debug_mode("error")``. Prints the
+    graph's set-up seconds, nodes, conditional nodes and pool bytes,
+    and each run's graphed rate beside the eager one on the same sweeps
+    (for (a) the eager and graphed static chunks' of the earlier
+    phases, ``distinct``'s and ``graph_rate``). Returns the launches by
+    run and the phase's numbers."""
+    t_phase = time.perf_counter()
+    cfg = LoamConfig.preset("VLP-16")
+    xyz_b, mask_b, _, eager_secs, _ = distinct
+    n = GRAPH_LANE_SWEEPS
+    graphs = graph_mod.sweep_graphs(cfg, dev)
+    keys = set(graphs.stats)
+    failures = []
+
+    # (a) Aligned lanes.
+    chunk = replay_mod.make_batched_chunk(cfg, static_cadence=False)
+    states = replay_mod.create_states(cfg, LANES, dev)
+    sync(dev)
+    _zero_launches()
+    rows, secs = [], []
+    for i, s in enumerate(range(0, n, CHUNK)):
+        sync(dev)
+        t0 = time.perf_counter()
+        with _sync_debug(i == n // CHUNK - 1):
+            states, outs = chunk(states, RawSweep(xyz_b[:, s:s + CHUNK],
+                                                  mask_b[:, s:s + CHUNK]))
+        rows.append(outs.packed)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    aligned_launches = _read_launches()
+    packed = torch.cat(rows, 1).cpu().numpy()
+    differ = [int(c) for c in np.nonzero(
+        (packed != graph_rows).any(axis=(0, 1)))[0]]
+    new_keys = [k for k in graphs.stats if k not in keys]
+    stats = [graphs.stats[k] for k in new_keys]
+    setup_s = sum(st.warmup_s + st.capture_s + st.instantiate_s
+                  for st in stats)
+    pool = graph_mod.pool_bytes(dev)
+    rate = LANES * (n - CHUNK) / sum(secs[1:])
+    rate_eager = LANES * (n - CHUNK) / sum(eager_secs[1:n // CHUNK])
+    for k, st in zip(new_keys, stats):
+        print(f"batched step graph {k[0]} {[str(x) for x in k[1:]]}: warm-up "
+              f"{st.warmup_s:.2f} s, capture {st.capture_s:.2f} s, "
+              f"instantiation {st.instantiate_s:.2f} s, {st.nodes} nodes "
+              f"({st.conditional_nodes} conditional nodes), the shared pools "
+              f"{st.pool_bytes / 2**20:.1f} MiB after it; card: {card}",
+              flush=True)
+    print(f"batched step (a): {LANES} distinct aligned lanes x {n} sweeps "
+          f"through make_batched_chunk(static_cadence=False) (CUDA graphs), "
+          f"the last chunk under sync debug mode 'error'; columns differing "
+          f"from the graph phase's static-chunk rows: {differ} (of 29); "
+          f"launches {json.dumps(aligned_launches)} (that run's "
+          f"{json.dumps(graph_launches)}); {rate:.3f} sweeps/s over all "
+          f"lanes after the first chunk (by chunk "
+          f"{[round(1e3 * x / CHUNK, 2) for x in secs]} ms a batched sweep, "
+          f"the first with its capture) against the static chunk's "
+          f"{graph_rate:.3f} graphed and {rate_eager:.3f} eager (recorded) on "
+          f"the same sweeps; card: {card}", flush=True)
+    if differ or aligned_launches != graph_launches:
+        failures.append(f"aligned lanes: columns {differ} differ, launches "
+                        f"{aligned_launches} against {graph_launches}")
+    if len(new_keys) != 1:
+        failures.append(f"aligned lanes: keys captured {new_keys}, not one")
+
+    # (b) Mixed starts.
+    step = replay_mod.make_batched_step(cfg)
+    fresh = replay_mod.create_states(cfg, LANES, dev)
+    after0, _ = step(fresh, RawSweep(xyz_b[:, 0], mask_b[:, 0]))
+    start = replay_mod.stack_states(
+        [replay_mod.lane(after0, i) for i in range(STEP_AHEAD)]
+        + [replay_mod.lane(fresh, i) for i in range(STEP_AHEAD, LANES)])
+    offsets = [1] * STEP_AHEAD + [0] * (LANES - STEP_AHEAD)
+    lanes_idx = torch.arange(LANES, device=dev)
+    raws = [RawSweep(xyz_b[lanes_idx, torch.tensor(offsets, device=dev) + k],
+                     mask_b[lanes_idx, torch.tensor(offsets, device=dev) + k])
+            for k in range(STEP_SWEEPS)]
+    eager = replay_mod.make_eager_batched_step(cfg)
+    sync(dev)
+    _zero_launches()
+    states_e, rows_e, secs_e = start, [], []
+    with _recording_lane_calls() as calls, launch_counts.needed() as needed:
+        for raw in raws:
+            t0 = time.perf_counter()
+            states_e, outs = eager(states_e, raw)
+            rows_e.append(outs.packed)
+            sync(dev)
+            secs_e.append(time.perf_counter() - t0)
+    mixed_needed = _needed(needed)
+    sync(dev)
+    _zero_launches()
+    states_g, rows_g, secs_g = start, [], []
+    for k, raw in enumerate(raws):
+        t0 = time.perf_counter()
+        with _sync_debug(k >= STEP_SWEEPS - STEP_NO_SYNC_SWEEPS):
+            states_g, outs = step(states_g, raw)
+        rows_g.append(outs.packed)
+        sync(dev)
+        secs_g.append(time.perf_counter() - t0)
+    mixed_launches = _read_launches()
+    packed_e = torch.stack(rows_e, 1).cpu().numpy()
+    packed_g = torch.stack(rows_g, 1).cpu().numpy()
+    differ_b = [int(c) for c in np.nonzero(
+        (packed_g != packed_e).any(axis=(0, 1)))[0]]
+    states_equal = _same_trees(states_g, states_e)
+    mapping_ran = packed_g[:, :, 18].astype(int).tolist()
+    losses = packed_g[:, :, 20:27].sum(axis=(1, 2)).tolist()
+    rate_g = LANES * STEP_SWEEPS / sum(secs_g)
+    rate_e = LANES * STEP_SWEEPS / sum(secs_e)
+    print(f"batched step (b): lanes 0-{STEP_AHEAD - 1} after their first "
+          f"sweep beside lanes {STEP_AHEAD}-{LANES - 1} fresh, {STEP_SWEEPS} "
+          f"sweeps through make_batched_step (CUDA graphs), the last "
+          f"{STEP_NO_SYNC_SWEEPS} under sync debug mode 'error'; columns "
+          f"differing from make_eager_batched_step: {differ_b} (of 29); "
+          f"states equal: {states_equal}; mapping_ran by lane {mapping_ran}; "
+          f"loss counters by lane {losses}; launches "
+          f"{json.dumps(mixed_launches)} (the eager run needed "
+          f"{json.dumps(mixed_needed)}); {rate_g:.3f} sweeps/s over all "
+          f"lanes graphed ({[round(1e3 * x, 2) for x in secs_g]} ms a batched "
+          f"sweep) against {rate_e:.3f} eager on the same sweeps (its calls "
+          f"recorded): {rate_g / rate_e:.2f}x; card: {card}", flush=True)
+    if not np.isfinite(packed_g).all():
+        failures.append("mixed starts: outputs not finite")
+    if differ_b or not states_equal or mixed_launches != mixed_needed:
+        failures.append(f"mixed starts: columns {differ_b} differ, states "
+                        f"equal {states_equal}, launches {mixed_launches} "
+                        f"against {mixed_needed}")
+    if any(losses) or set(map(tuple, mapping_ran)) != {(1, 0) * (STEP_SWEEPS // 2),
+                                                       (0, 1) * (STEP_SWEEPS // 2)}:
+        failures.append(f"mixed starts: losses {losses}, mapping_ran "
+                        f"{mapping_ran}")
+    if set(graphs.stats) != keys | set(new_keys):
+        failures.append(f"mixed starts captured "
+                        f"{set(graphs.stats) - keys - set(new_keys)}")
+    mixed_calls = batched_calls(calls, timed=False, label="batched step")
+    out = {"lanes": LANES, "aligned": {
+               "sweeps": n, "columns_differing": differ,
+               "launches": aligned_launches,
+               "graph_phase_launches": graph_launches, "chunk_s": secs,
+               "sweeps_per_sec": rate, "static_graphed_sweeps_per_sec":
+                   graph_rate, "static_eager_sweeps_per_sec": rate_eager},
+           "mixed": {
+               "ahead_lanes": STEP_AHEAD, "sweeps": STEP_SWEEPS,
+               "columns_differing": differ_b, "states_equal": states_equal,
+               "mapping_ran": mapping_ran, "losses": losses,
+               "launches": mixed_launches, "eager_needed": mixed_needed,
+               "sweep_s": secs_g, "eager_sweep_s": secs_e,
+               "sweeps_per_sec": rate_g, "eager_sweeps_per_sec": rate_e,
+               "calls": {k: sum(g["calls"] for g in v)
+                         for k, v in mixed_calls.items()}},
+           "setup_s": setup_s,
+           "graphs": [{"key": [str(x) for x in k], **st._asdict()}
+                      for k, st in zip(new_keys, stats)],
+           "pool_bytes": pool, "card": card,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"batched step: one graph for every mix of starts, set up in "
+          f"{setup_s:.1f} s, {sum(st.nodes or 0 for st in stats)} nodes "
+          f"({sum(st.conditional_nodes for st in stats)} conditional), the "
+          f"shared pools {pool / 2**20:.1f} MiB; the phase took "
+          f"{out['seconds']:.1f} s; card: {card}", flush=True)
+    if failures:
+        raise AssertionError("batched step graph phase: " + "; ".join(failures))
+    return {"aligned": aligned_launches, "mixed": mixed_launches}, out
 
 
 def run_trajectory_gates(dev, replay_packed: np.ndarray) -> dict:
@@ -2127,6 +2375,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = engine_card()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {_nvcc_version()}", flush=True)
@@ -2159,11 +2408,14 @@ def main() -> int:
         entry_launches, entry = run_entry_points(dev, card)
         gates = run_trajectory_gates(dev, replay_packed)
     batched, distinct = run_batched(dev, card, replay_packed, chunk_ms)
-    graph_launches, graph = run_graph(dev, card, replay_packed, chunk_ms,
-                                      replay_needed, distinct,
-                                      batched["sweeps_per_sec"])
+    graph_launches, graph, graph_rows = run_graph(
+        dev, card, replay_packed, chunk_ms, replay_needed, distinct,
+        batched["sweeps_per_sec"])
     sweep_graph_launches, sweep_graph = run_sweep_graphs(
         dev, card, cfg, seq[0], seq[1], live_ref)
+    step_launches, step_graphs = run_batched_step_graphs(
+        dev, card, distinct, graph_rows, graph_launches["batched"],
+        graph["batched"]["sweeps_per_sec"])
     multi = run_multiprocess(dev, card)
     sized_launches, sized_out = run_sized(dev, card, sized, chunk_ms)
     with device_split.eager_steps():
@@ -2185,6 +2437,11 @@ def main() -> int:
                  + batched["distinct_launches"][kernel])
             row["launches"] = n
             row["launches_per_batched_sweep"] = n / (2 * LANE_SWEEPS)
+            row["batched_step"] = {
+                run: {"launches": v[kernel],
+                      "launches_per_batched_sweep": v[kernel] / sweeps}
+                for (run, v), sweeps in zip(
+                    step_launches.items(), (GRAPH_LANE_SWEEPS, STEP_SWEEPS))}
             row["batched_calls"] = batched["calls"][row["name"]]
             row["multiprocess"] = {"launches_by_rank": [
                 w["launches"][kernel] for w in multi["workers"]]}
@@ -2216,6 +2473,7 @@ def main() -> int:
                       "batched": {k: v for k, v in batched.items()
                                   if k != "calls"},
                       "graph": graph, "sweep_graphs": sweep_graph,
+                      "batched_step_graphs": step_graphs,
                       "multiprocess": multi,
                       "sized": {k: v for k, v in sized_out.items()
                                 if k != "engine_calls"},
@@ -2225,6 +2483,9 @@ def main() -> int:
                                 "segment_sum_lanes":
                                     bench_out["calls"]["segment_sum_lanes"]},
                       "segment_sum_lanes": batched["calls"]["segment_sum_lanes"]}))
+    total = time.perf_counter() - t_start
+    print(f"chip_smoke: {total:.1f} s in all, {LIMIT_S - total:.1f} s of "
+          f"margin to its {LIMIT_S} s limit; card: {card}", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

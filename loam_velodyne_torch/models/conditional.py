@@ -37,6 +37,15 @@ routes to a pool of its own for that depth. Those pools, like the
 graphs' shared pool, live as long as the process: every graph's bodies
 share them, and no value that outlives a replay sits in them.
 
+``run_if_any(flag, body)`` is the batched step's ``lax.cond`` under
+vmap (mapping's ``prepare`` and ``finish`` on the mapping gate): a
+region under an IF node on "any lane's ``flag``", skipped on the card
+in a sweep where no lane's holds. It has no carry: its results are
+copied into tensors allocated inside the node on the capturing stream
+from the graph's pool (an allocation adds no node), and its caller
+keeps them only on the lanes whose ``flag`` holds (``torch.where``),
+so what a skipped node leaves in them is never read.
+
 Counts. A kernel launch captured inside a region is counted on the card
 when the region runs (``ops/launches.py::count``). ``launches.needed``,
 around an eager run, tallies the launches whose regions' predicates all
@@ -54,6 +63,7 @@ import contextlib
 from typing import Callable, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from loam_velodyne_torch.ops import cuda_lib, lanes, launches
 
@@ -127,6 +137,38 @@ def run_if_running(done: Tensor, body: Callable, carry):
 
     node(running(done), region)
     return outs
+
+
+def run_if_any(flag: Tensor, body: Callable):
+    """``body()``, skipped on the card where a CUDA graph is captured and
+    ``flag`` holds on no lane; eagerly always run. The counterpart of a
+    ``lax.cond`` on ``flag`` under vmap, whose caller selects each lane's
+    branch: ``body`` returns a tree of (named) tuples of tensors, and the
+    caller reads them only where ``flag`` holds (``torch.where`` over the
+    lanes). In a capture the results are copied, inside the node, into
+    tensors that are allocated there on the capturing stream from the
+    graph's pool (an allocation adds no node to the graph), so they
+    outlive the region; a replay that skips the node leaves in them
+    whatever that memory held."""
+    if not capturing(flag):
+        if not launches.tallying():
+            return body()
+        with launches.within(running(~flag)):
+            return body()
+    outer = (torch.cuda.stream(torch.cuda.current_stream(flag.device))
+             if flag.device.type == "cuda" else contextlib.nullcontext())
+    made = []
+
+    def region():
+        new = body()
+        with outer:
+            outs = pytree.tree_map(torch.empty_like, new)
+        for o, n in zip(pytree.tree_leaves(outs), pytree.tree_leaves(new)):
+            o.copy_(n)
+        made.append(outs)
+
+    node(running(~flag), region)
+    return made[0]
 
 
 def _card(device) -> torch.device:

@@ -4,10 +4,14 @@ Counterpart of ``loam_velodyne_tpu/models/engine.py``. ``step`` is a
 plain function of (state, raw sweep); the cadence decisions that the
 JAX package takes with ``lax.cond`` on device (odometry's first sweep,
 mapping on the io_ratio / stack_frame_num gate) are pure functions of
-the state's counters, so the host keeps a copy of those counters
-(``Cadence``) and decides them without reading the device. The
-device-side counters (``sweep``, ``mapping_inputs``) are still carried,
-so the state matches the JAX layout and checkpoints load both ways.
+the state's counters, so for a single stream the host keeps a copy of
+those counters (``Cadence``) and decides them without reading the
+device. The device-side counters (``sweep``, ``mapping_inputs``) are
+still carried, so the state matches the JAX layout and checkpoints
+load both ways. ``lane_step`` takes the same decisions from those
+device counters (``gate``), each lane its own under vmap: one lane of
+the batched step (``parallel/replay.py::make_batched_step``), whose
+lanes may be at different sweeps.
 
 ``step(mapping_mode="auto")`` is the per-sweep path (the cadence gate,
 the dynamic GN schedules, an optional IMU window); "on" / "off" are the
@@ -195,12 +199,31 @@ def front(raw: scan_mod.RawSweep, imu_window: Optional[imu_ops.ImuWindow],
                  imu_ops.end_attitude(imu_window, period), grid.dropped)
 
 
+def gate(state: EngineState, cfg: LoamConfig) -> Tuple[Tensor, Tensor]:
+    """(mapping_input, mapping_due) of the next sweep as 0-d bools on the
+    state's device, from its own counters: ``Cadence.gate`` computed on
+    the device, the JAX step's gate (``loam_velodyne_tpu/models/
+    engine.py:150-155``)."""
+    io, stack = cfg.odometry.io_ratio, cfg.mapping.stack_frame_num
+    mapping_input = state.odometry.initialized
+    if io >= 2:
+        mapping_input = mapping_input & (torch.remainder(state.sweep, io) == 1)
+    due = mapping_input
+    if stack >= 2:
+        due = due & (torch.remainder(state.mapping_inputs, stack) == 0)
+    return mapping_input, due
+
+
 def close(state: EngineState, f: Front, odometry, mapped,
-          mapping_input: bool, due: bool) -> Tuple[EngineState, EngineOutputs]:
+          mapping_input, due) -> Tuple[EngineState, EngineOutputs]:
     """The end of a sweep: fusion, the new state and the outputs.
     ``odometry``: odometry's (state, outputs); ``mapped``: mapping's
     (state, outputs) when it ran, else None. ``mapping_input`` and
-    ``due`` are the host's cadence decisions for the sweep."""
+    ``due``: the cadence decisions for the sweep, the host's (bools) or
+    the state's own (0-d bool tensors, ``gate``): then ``mapped`` is
+    every lane's mapping frame and each lane keeps it, with its fusion
+    update, its surround flag and its map telemetry, only where ``due``
+    holds (the JAX step's ``lax.cond`` under vmap)."""
     ostate, oouts = odometry
     dev = oouts.transform_sum.device
     if mapped is not None:
@@ -212,13 +235,23 @@ def close(state: EngineState, f: Front, odometry, mapped,
         mstate, fstate = state.mapping, state.fusion
         surround_due = torch.zeros((), dtype=torch.bool, device=dev)
         map_tel = mapping_mod.MapTelemetry.zero(dev)
-    mapping_due = torch.full((), due, dtype=torch.bool, device=dev)
+    if isinstance(due, Tensor):
+        mstate, fstate, surround_due, map_tel = odometry_mod.select(
+            due, (mstate, fstate, surround_due, map_tel),
+            (state.mapping, state.fusion,
+             torch.zeros((), dtype=torch.bool, device=dev),
+             mapping_mod.MapTelemetry.zero(dev)))
+        mapping_due = due
+        forwarded = mapping_input.to(torch.int32)
+    else:
+        mapping_due = torch.full((), due, dtype=torch.bool, device=dev)
+        forwarded = int(mapping_input)
     fused = fusion_mod.fuse(fstate, oouts.transform_sum)
 
     new_state = EngineState(
         odometry=ostate, mapping=mstate, fusion=fstate,
         sweep=state.sweep + 1,
-        mapping_inputs=state.mapping_inputs + int(mapping_input))
+        mapping_inputs=state.mapping_inputs + forwarded)
     tel = Telemetry(ingest_dropped=f.ingest_dropped,
                     feature_dropped=f.feats.dropped, mapping=map_tel)
     outs = EngineOutputs(
@@ -271,6 +304,34 @@ def step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
             oouts.surf_cloud, cfg,
             None if imu_window is None else f.imu_rpy,
             static_schedule=static_schedule)
+    return close(state, f, odometry, mapped, mapping_input, due)
+
+
+def lane_step(state: EngineState, raw: scan_mod.RawSweep, cfg: LoamConfig,
+              imu_window: Optional[imu_ops.ImuWindow] = None
+              ) -> Tuple[EngineState, EngineOutputs]:
+    """One sweep with every decision taken on the device, from the
+    state's own counters (``gate``, ``state.odometry.initialized``):
+    the JAX step with ``mapping_mode="auto"``, one lane of the batched
+    step (``parallel/replay.py::make_batched_step`` vmaps it). The same
+    segments as ``step``: ``front``; ``odometry.step`` on the state's
+    flag (both branches, each lane taking its own); ``mapping.step`` on
+    the gate, its ``prepare`` and ``finish`` conditional regions that
+    the card skips in a sweep where no lane is due; ``close``, which
+    keeps mapping's results only where the lane is due. Each GN runs
+    the static schedule's phases (the dynamic schedule's transform bit
+    for bit), stopped before it starts on a lane that does not run it
+    and skipped on the card once no lane runs. Nothing is read back to
+    the host."""
+    f = front(raw, imu_window, cfg)
+    odometry = odometry_mod.step(state.odometry, f.feats, cfg,
+                                 state.odometry.initialized, f.imu)
+    mapping_input, due = gate(state, cfg)
+    oouts = odometry[1]
+    mapped = mapping_mod.step(
+        state.mapping, oouts.transform_sum, oouts.corner_cloud,
+        oouts.surf_cloud, cfg, None if imu_window is None else f.imu_rpy,
+        due=due)
     return close(state, f, odometry, mapped, mapping_input, due)
 
 
@@ -341,13 +402,13 @@ def _tail(state: EngineState, f: Front, odometry, fr=None, carry=None, *,
     return close(state, f, odometry, mapped, mapping_input, due)
 
 
-def _stack(items):
+def _stack(items, dim: int = 0):
     """Stack a list of equal NamedTuple trees leaf by leaf."""
     first = items[0]
     if isinstance(first, tuple):
-        return type(first)(*(_stack([it[i] for it in items])
+        return type(first)(*(_stack([it[i] for it in items], dim)
                              for i in range(len(first))))
-    return torch.stack(items)
+    return torch.stack(items, dim)
 
 
 def check_static_chunk(cfg: LoamConfig, k: int, cadence: Cadence) -> None:

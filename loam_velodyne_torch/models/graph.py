@@ -379,7 +379,9 @@ class Segment(NamedTuple):
 class SweepGraphs:
     """The per-sweep step's graphs on one card: one CUDA graph per
     segment key (``models/engine.py::step_graphed`` names the segments
-    and their keys), all in the card's shared pool.
+    and their keys; ``parallel/replay.py::batched_step_graphed`` adds
+    the batched step, one vmapped segment keyed by the sweep's shape
+    and the IMU window's layout), all in the card's shared pool.
 
     - **Slots.** The segments pass their inputs and outputs through
       named slots: trees of device buffers outside the pool (the state,

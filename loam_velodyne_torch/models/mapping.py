@@ -586,16 +586,21 @@ def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
                   map_corner_xyz: Tensor, map_corner_mask: Tensor,
                   map_surf_xyz: Tensor, map_surf_mask: Tensor,
                   tobe0: Tensor, cfg: LoamConfig,
-                  static_schedule: bool = True) -> Tensor:
+                  static_schedule: bool = True,
+                  due: Optional[Tensor] = None) -> Tensor:
     """The <=10-iteration map-alignment GN. Static schedule: the phases
     of ``gn_phase``, early abort as masked freezing. Dynamic schedule:
     refreshed when ``it % corresp_refresh_every == 0``, the loop left at
     the first converged iteration (or at once when the map is too
-    small), each read on the host."""
+    small), each read on the host. ``due``: a 0-d bool; where it is
+    False the GN stops before it starts (a lane that does not map this
+    sweep, in the batched step, which runs the static schedule)."""
     m = cfg.mapping
     targets, run = gn_targets(corner_stack, surf_stack, map_corner_xyz,
                               map_corner_mask, map_surf_xyz, map_surf_mask,
                               cfg)
+    if due is not None:
+        run = run & due
     if static_schedule:
         return gn_phases(gn_start(tobe0, run), targets, cfg).tf
     if not bool(run):
@@ -869,10 +874,27 @@ def finish(state: MappingState, fr: MapFrame, tobe: Tensor,
 def step(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
          surf_cloud: PointSet, cfg: LoamConfig,
          imu_rpy: Optional[Tuple[Tensor, Tensor]] = None,
-         static_schedule: bool = True
+         static_schedule: bool = True, due: Optional[Tensor] = None
          ) -> Tuple[MappingState, MappingOutputs]:
     """One mapping refinement. imu_rpy: optional ((roll, pitch, yaw) at
-    the sweep end, window has data) for the roll / pitch blend."""
+    the sweep end, window has data) for the roll / pitch blend.
+
+    ``due``: the mapping gate as a 0-d bool on the device (the batched
+    step, where each lane maps on its own gate): ``prepare`` and
+    ``finish`` each run under ``conditional.run_if_any`` (skipped on the
+    card in a sweep where no lane is due) and the GN, in the static
+    schedule, stops before it starts where ``due`` is False. What
+    comes back is the mapped frame of every lane; the caller keeps it
+    only where ``due`` holds (``engine.close``), as ``lax.cond`` under
+    vmap selects."""
+    if due is not None:
+        fr = conditional.run_if_any(due, functools.partial(
+            prepare, state, odom_pose, corner_cloud, surf_cloud, cfg))
+        tobe = optimize_pose(fr.corner_stack, fr.surf_stack, fr.map_c_xyz,
+                             fr.map_c_mask, fr.map_s_xyz, fr.map_s_mask,
+                             fr.tobe, cfg, due=due)
+        return conditional.run_if_any(due, functools.partial(
+            finish, state, fr, tobe, imu_rpy, cfg))
     fr = prepare(state, odom_pose, corner_cloud, surf_cloud, cfg)
     tobe = optimize_pose(fr.corner_stack, fr.surf_stack, fr.map_c_xyz,
                          fr.map_c_mask, fr.map_s_xyz, fr.map_s_mask, fr.tobe,

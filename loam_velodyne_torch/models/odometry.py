@@ -25,8 +25,10 @@ and ``finish`` (the pose accumulation and the clouds for the next
 sweep); ``first_sweep`` is the step of a sequence's first sweep, which
 has no GN.
 
-Which branch a step takes (first sweep or not) is a host-side flag: it
-is a function of the sweep counter, which the engine keeps on the host.
+Which branch a step takes (first sweep or not) is a host-side flag
+where the engine keeps the sweep counter on the host (the single
+stream); the batched step passes the state's own flag, and each lane
+takes its branch on the device.
 """
 
 from __future__ import annotations
@@ -399,15 +401,38 @@ def finish(state: OdometryState, feats: SweepFeatures, tf: Tensor,
                                       surf_cloud=surf_end)
 
 
+def select(flag: Tensor, a, b):
+    """``a`` where the 0-d bool ``flag`` holds, else ``b``: two equal
+    trees of (named) tuples of tensors, leaf by leaf (under vmap, each
+    lane's own choice, as ``lax.cond`` under vmap selects)."""
+    if isinstance(a, tuple):
+        items = [select(flag, x, y) for x, y in zip(a, b)]
+        return tuple(items) if type(a) is tuple else type(a)(*items)
+    return torch.where(flag, a, b)
+
+
 def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
-         initialized: bool, imu: ImuSweepState | None = None,
+         initialized: bool | Tensor, imu: ImuSweepState | None = None,
          static_schedule: bool = True
          ) -> Tuple[OdometryState, OdometryOutputs]:
-    """One sweep of odometry. ``initialized`` is the host's copy of
-    ``state.initialized``: False on the first sweep of a sequence.
-    ``imu``: this sweep's IMU summary (zero without one)."""
+    """One sweep of odometry. ``initialized`` False on the first sweep of
+    a sequence: the host's copy of ``state.initialized`` (a bool, which
+    picks the branch), or the flag itself (a tensor: both branches run
+    and each lane takes its own, the JAX package's ``lax.cond`` on
+    ``state.initialized`` under vmap; the GN, in the static schedule,
+    stops before it starts on a lane in its first sweep, so a batch of
+    such lanes skips it on the card). ``imu``: this sweep's IMU summary
+    (zero without one)."""
     if imu is None:
         imu = ImuSweepState.zero(state.transform.device)
+    if isinstance(initialized, Tensor):
+        carry = gn_start(initial_transform(state, imu, cfg),
+                         _runs(state.last_corner, state.last_surf,
+                               cfg.odometry) & initialized)
+        tf = gn_phases(carry, feats.sharp, feats.flat, state.last_corner,
+                       state.last_surf, cfg).tf
+        return select(initialized, finish(state, feats, tf, imu, cfg),
+                      first_sweep(state, feats, imu))
     if not initialized:
         return first_sweep(state, feats, imu)
     tf0 = initial_transform(state, imu, cfg)

@@ -7,27 +7,38 @@ for all B lanes, and every kernel runs its lane form (``ops/lanes.py``),
 one launch for all lanes. The single-lane code stays the only statement
 of the algorithm.
 
-The host's cadence (``models/engine.py::Cadence``) decides which sweeps
-map; it is a function of the sweep counters alone, so one host cadence
-drives every lane when all lanes start at the same sweep, as one trace
-drives the JAX package's vmap. Only the static cadence and the static
-Gauss-Newton schedules are vmappable: the dynamic schedules leave
-their loops on a flag read from the device for each lane
-(``models/odometry.py::run_gauss_newton``,
-``models/mapping.py::optimize_pose``), which a vmapped function cannot
-read.
+Two forms, as in the JAX package:
+
+- **The batched step** (``make_batched_step``, ``replay_sequences``,
+  ``make_batched_chunk(static_cadence=False)``): vmap over
+  ``engine.lane_step``, the JAX step with ``mapping_mode="auto"``. Each
+  lane takes its decisions from its own counters on the device: its
+  first sweep (``odometry.step`` on the state's flag, both branches,
+  each lane taking its own), its mapping gate (``engine.gate``; mapping
+  runs where any lane is due and each lane keeps it only where it is
+  due), and each GN runs while any lane runs. So the lanes may be at
+  any sweeps: fresh sequences beside running ones, or lanes resumed
+  from checkpoints at different points. On the card it replays CUDA
+  graphs (``batched_step_graphed``, through ``graph.SweepGraphs``): one
+  graph a sweep shape and IMU window layout, whatever the lanes'
+  starts, with mapping's ``prepare`` and ``finish`` and the GN phases
+  and iterations conditional nodes (``models/conditional.py``), so
+  nothing is read back inside a sweep; ``make_eager_batched_step`` is
+  the same step op by op, the plain reference (the CPU runs it).
+- **The static chunk** (``make_batched_chunk``): vmap over
+  ``engine.run_chunk(static_cadence=True)``, mapping scheduled on the
+  host, which needs every lane at the same sweep on an io_ratio
+  boundary (``lanes_cadence``), as the JAX package's does. On the card
+  its callable replays the vmapped group of io_ratio sweeps as CUDA
+  graphs (``models/graph.py``), the counterpart of the JAX package's
+  ``jax.jit(jax.vmap(chunk_one))``: a GN phase or iteration there is a
+  conditional node that runs while any lane runs
+  (``models/conditional.py::running``, whose vmap rule reduces over the
+  lanes), as the vmapped ``lax.while_loop`` over phases does;
+  ``make_eager_batched_chunk`` is the same chunk op by op.
 
 The vmapped calls run with the vmap fallback switched off: an operation
 without a batching rule raises instead of running lane by lane.
-
-On the card ``make_batched_chunk``'s callable replays the vmapped group
-of io_ratio sweeps as CUDA graphs (``models/graph.py``), the
-counterpart of the JAX package's ``jax.jit(jax.vmap(chunk_one))``: a
-GN phase or iteration there is a conditional node that runs while any
-lane runs (``models/conditional.py::running``, whose vmap rule reduces
-over the lanes), as the vmapped ``lax.while_loop`` over phases does;
-``make_eager_batched_chunk`` is the same chunk op by op, the plain
-reference (the CPU runs it).
 
 There is no mesh: this runs the lanes on one device.
 """
@@ -72,8 +83,9 @@ def create_states(cfg: LoamConfig, b: int, device="cuda"
 
 
 def lanes_cadence(states: engine_mod.EngineState) -> Cadence:
-    """The host cadence of a batched state (one read from its device);
-    every lane must be at the same sweep with the same counters."""
+    """The host cadence of a batched state (one read from its device),
+    for the static chunk: every lane must be at the same sweep with the
+    same counters."""
     counters = torch.stack([states.sweep, states.mapping_inputs,
                             states.odometry.initialized.to(torch.int32)], 1)
     rows = {tuple(r) for r in counters.tolist()}
@@ -133,25 +145,42 @@ def make_eager_batched_chunk(cfg: LoamConfig, with_imu: bool = False):
 
 def make_batched_chunk(cfg: LoamConfig, with_imu: bool = False,
                        static_cadence: bool = True):
-    """B sequences x K sweeps per call: vmap over the lanes of
-    ``engine.run_chunk(static_cadence=True)``.
+    """B sequences x K sweeps per call.
 
     Returns ``chunk(states, raws, cadence=None, imu_windows=None) ->
     (states, outputs)``: ``states`` batched (``stack_states``), ``raws``
     a RawSweep of (B, K, N, 3) / (B, K, N), with ``with_imu`` an ImuWindow
     with leading (B, K) axes; outputs carry leading (B, K) axes.
-    ``cadence`` is the lanes' common host cadence at the chunk start;
-    None reads it from the states (one read) and checks that all lanes
-    share it. The chunk must start on an io_ratio boundary. Only the
-    static cadence is supported (``static_cadence=False`` raises). On
-    the card the chunk runs as CUDA graphs of one vmapped group
-    (``chunk.graphs``, a ``models/graph.py`` ``ChunkGraphs``); on the
-    CPU it is ``make_eager_batched_chunk``'s."""
+
+    ``static_cadence`` True: vmap over the lanes of
+    ``engine.run_chunk(static_cadence=True)``. ``cadence`` is the lanes'
+    common host cadence at the chunk start; None reads it from the
+    states (one read) and checks that all lanes share it. The chunk must
+    start on an io_ratio boundary. On the card the chunk runs as CUDA
+    graphs of one vmapped group (``chunk.graphs``, a ``models/graph.py``
+    ``ChunkGraphs``); on the CPU it is ``make_eager_batched_chunk``'s.
+
+    ``static_cadence`` False: K sweeps of ``make_batched_step`` (the JAX
+    ``run_chunk(static_cadence=False)`` under vmap), each lane from its
+    own counters, so the lanes may start anywhere and K is any length;
+    ``cadence`` is not read (the decisions are taken on the device)."""
     if not static_cadence:
-        raise ValueError(
-            "the batched replay runs the static cadence only: the dynamic "
-            "Gauss-Newton schedules leave their loops on a flag read from "
-            "the device for each lane, which a vmapped function cannot read")
+        step = make_batched_step(cfg, with_imu)
+
+        def dynamic(states, raws: RawSweep, cadence: Optional[Cadence] = None,
+                    imu_windows: Optional[imu_ops.ImuWindow] = None):
+            _check_imu(with_imu, imu_windows)
+            outs = []
+            for k in range(raws.xyz.shape[1]):
+                win = None if imu_windows is None else imu_ops.ImuWindow(
+                    *(t[:, k] for t in imu_windows))
+                states, o = step(states, RawSweep(raws.xyz[:, k],
+                                                  raws.mask[:, k]), win)
+                outs.append(o)
+            return states, engine_mod._stack(outs, 1)
+
+        return dynamic
+
     eager = make_eager_batched_chunk(cfg, with_imu)
 
     def group(cadence: Cadence):
@@ -173,39 +202,88 @@ def make_batched_chunk(cfg: LoamConfig, with_imu: bool = False,
     return chunk
 
 
-def make_batched_step(cfg: LoamConfig, with_imu: bool = False):
-    """One sweep of B lanes: vmap over ``engine.step`` with the mapping
-    mode ("on" / "off") taken from the host cadence's gate and the
-    static GN schedules (the JAX package's batched step runs its
-    dynamic schedules under vmap; the port's dynamic schedules read the
-    device, see the module docstring).
+def _vmapped_step(cfg: LoamConfig, states, raw: RawSweep, imu_window):
+    """``engine.lane_step`` vmapped over the lanes, with the vmap
+    fallback off."""
+    def one(state, x, m, w):
+        return engine_mod.lane_step(state, RawSweep(x, m), cfg, w)
 
-    Returns ``step(states, raw, cadence=None, imu_window=None) ->
-    (states, outputs)``: ``raw`` a RawSweep of (B, N, 3) / (B, N), with
-    ``with_imu`` an ImuWindow with a leading B axis; ``cadence`` as in
-    ``make_batched_chunk``; advance it with ``cadence.advance(cfg)``."""
+    fn = torch.func.vmap(
+        one, in_dims=(0, 0, 0, None if imu_window is None else 0))
+    with no_vmap_fallback():
+        return fn(states, raw.xyz, raw.mask, imu_window)
 
-    def step(states, raw: RawSweep, cadence: Optional[Cadence] = None,
+
+def make_eager_batched_step(cfg: LoamConfig, with_imu: bool = False):
+    """The batched step op by op (vmap over ``engine.lane_step``): the
+    plain reference of ``make_batched_step``'s graphs, with the same
+    call; the CPU runs it."""
+
+    def step(states, raw: RawSweep,
              imu_window: Optional[imu_ops.ImuWindow] = None):
         _check_imu(with_imu, imu_window)
-        if cadence is None:
-            cadence = lanes_cadence(states)
-        mode = "on" if cadence.gate(cfg)[1] else "off"
+        return _vmapped_step(cfg, states, raw, imu_window)
 
-        def one(s, x, m, w):
-            return engine_mod.step(s, RawSweep(x, m), cfg, mode, cadence, w,
-                                   static_schedule=True)
+    return step
 
-        fn = torch.func.vmap(one, in_dims=(0, 0, 0, 0 if with_imu else None))
-        with no_vmap_fallback():
-            return fn(states, raw.xyz, raw.mask, imu_window)
+
+def batched_step_graphed(graphs: graph_mod.SweepGraphs, cfg: LoamConfig,
+                         states, raw: RawSweep,
+                         imu_window: Optional[imu_ops.ImuWindow] = None):
+    """One batched sweep through ``graphs``: the vmapped
+    ``engine.lane_step`` as one graph per key, the sweep's shape (B
+    included) and the IMU window's layout (no cadence: the lanes'
+    decisions are taken on the card, so one graph serves every mix of
+    lane starts). The caller's states are copied into the graph's slots
+    and fresh tensors are returned, equal bit for bit to
+    ``make_eager_batched_step``'s."""
+    b = raw.xyz.shape[0]
+    state_slot, out_slot = ("lanes_state", b), ("lanes_outputs", b)
+    raw_slot = ("lanes_raw", tuple(raw.xyz.shape))
+    reads = (state_slot, raw_slot)
+    graphs.load(state_slot, states)
+    graphs.load(raw_slot, raw)
+    if imu_window is not None:
+        win_slot = ("lanes_win", tuple(tuple(t.shape) for t in imu_window))
+        graphs.load(win_slot, imu_window)
+        reads += (win_slot,)
+    graphs.run(("lanes",) + reads[1:], graph_mod.Segment(
+        lambda s, r, w=None: _vmapped_step(cfg, s, r, w), reads,
+        (state_slot, out_slot)))
+    return graphs.take(state_slot), graphs.take(out_slot)
+
+
+def make_batched_step(cfg: LoamConfig, with_imu: bool = False):
+    """One sweep of B lanes: the JAX package's ``make_batched_step``,
+    ``jax.jit(jax.vmap(step))`` with ``mapping_mode="auto"`` and the
+    dynamic schedules. Each lane maps on its own gate, takes its own
+    first-sweep branch, and each GN runs while any lane runs (see the
+    module docstring), so the lanes may be at different sweeps.
+
+    Returns ``step(states, raw, imu_window=None) -> (states, outputs)``:
+    ``raw`` a RawSweep of (B, N, 3) / (B, N), with ``with_imu`` an
+    ImuWindow with a leading B axis. On the card it replays the
+    configuration's per-sweep graphs (``graph.sweep_graphs``, shared by
+    every caller of this configuration on the card, through
+    ``batched_step_graphed``); on the CPU it is
+    ``make_eager_batched_step``'s."""
+    eager = make_eager_batched_step(cfg, with_imu)
+
+    def step(states, raw: RawSweep,
+             imu_window: Optional[imu_ops.ImuWindow] = None):
+        if raw.xyz.device.type != "cuda":
+            return eager(states, raw, imu_window)
+        _check_imu(with_imu, imu_window)
+        return batched_step_graphed(graph_mod.sweep_graphs(cfg, raw.xyz.device),
+                                    cfg, states, raw, imu_window)
 
     return step
 
 
 def replay_sequences(cfg: LoamConfig, sequences, device="cuda",
                      sweep_capacity: int = 32768) -> np.ndarray:
-    """Replay B equal-length sweep sequences as B lanes, sweep by sweep.
+    """Replay B equal-length sweep sequences as B lanes, sweep by sweep
+    through ``make_batched_step``.
 
     sequences: list of B lists of (N_i, 3) float32 arrays (points past
     ``sweep_capacity`` are cut). Returns fused positions (B, T, 3)."""
@@ -215,7 +293,6 @@ def replay_sequences(cfg: LoamConfig, sequences, device="cuda",
         raise ValueError("sequences must be of equal length")
     step = make_batched_step(cfg)
     states = create_states(cfg, b, device)
-    cadence = Cadence()
     out = []
     for k in range(t):
         xyz = np.zeros((b, sweep_capacity, 3), np.float32)
@@ -226,8 +303,7 @@ def replay_sequences(cfg: LoamConfig, sequences, device="cuda",
             mask[i, :len(pts)] = True
         raw = RawSweep(torch.from_numpy(xyz).to(device),
                        torch.from_numpy(mask).to(device))
-        states, outs = step(states, raw, cadence)
-        cadence = cadence.advance(cfg)
+        states, outs = step(states, raw)
         out.append(outs.fused_pose[:, 3:])
     return torch.stack(out, 1).cpu().numpy()
 

@@ -9,8 +9,9 @@ Two readings on the VLP-16 bench sequence at datasheet capacities:
    what the batching rules of the other operations change.
 2. From a common state (the single stream's after ``--before`` sweeps),
    the next sweep stepped by the single stream and by the batched step
-   (``make_batched_step``) at B = 1 and at B = ``--lanes`` identical
-   lanes. The B-lane step records every call of the functions of
+   op by op (``make_eager_batched_step``: each lane's decisions taken on
+   the device, as the graphed ``make_batched_step`` takes them) at
+   B = 1 and at B = ``--lanes`` identical lanes. The B-lane step records every call of the functions of
    ``device_split.TRACED`` (lane 0 of each batched argument and
    output), and so does the single stream's step. Each batched call is
    then replayed single-lane on the card with its own lane-0 inputs: a
@@ -142,7 +143,7 @@ def split_sweep(cfg, dev, xyz, mask, before: int, lanes: int) -> dict:
             static_schedule=True))
     finally:
         rec_single.remove()
-    step = replay.make_batched_step(cfg)
+    step = replay.make_eager_batched_step(cfg)
     result = {}
     for b in sorted({1, lanes}):
         states = replay.stack_states([_clone(state) for _ in range(b)])
@@ -151,10 +152,10 @@ def split_sweep(cfg, dev, xyz, mask, before: int, lanes: int) -> dict:
         if b == lanes:
             rec_lanes.install()
             try:
-                calls = rec_lanes.run(lambda: step(states, raws, cadence))
+                calls = rec_lanes.run(lambda: step(states, raws))
             finally:
                 rec_lanes.remove()
-        _, outs = step(states, raws, cadence)
+        _, outs = step(states, raws)
         got = _pose_rows(outs.packed)
         result[f"pose_dev_b{b}"] = float(np.abs(got - _pose_rows(one.packed)).max())
         result[f"lanes_equal_b{b}"] = bool((got == got[0]).all())

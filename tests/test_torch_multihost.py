@@ -9,9 +9,11 @@ The reference is the JAX package, run once on the dry run's four lanes
 ``make_batched_chunk`` in the dry run's chunks, and its
 ``replay_sequences`` on a one-CPU mesh, which runs the dynamic batched
 step (``engine.step`` with its dynamic cadence and Gauss-Newton
-schedules under ``jax.vmap``). The port's batched step runs the static
-schedules; the JAX package's two runs of this input are equal to the
-bit.
+schedules under ``jax.vmap``). The port's batched step takes the same
+decisions on the device (each lane's gate and first sweep; each GN in
+the static schedule's phases, which give the dynamic schedule's
+transform bit for bit); the JAX package's two runs of this input are
+equal to the bit.
 
 Tolerances: positions to 1e-5 against either JAX run (measured largest
 deviation: 8.6e-7 for both, growing over the 8 sweeps; the lanes are on
@@ -121,9 +123,9 @@ def test_two_process_dry_run_gathers_every_lane(tmp_path):
 
 
 def test_batched_step_matches_the_jax_dynamic_batched_step():
-    """The port's ``replay_sequences`` (the batched step, static
-    schedules) on the dry run's four lanes against the JAX package's
-    (the dynamic schedules under vmap)."""
+    """The port's ``replay_sequences`` (the batched step, each lane's
+    decisions taken on the device) on the dry run's four lanes against
+    the JAX package's (the dynamic schedules under vmap)."""
     cfg, lanes, cap = _lanes()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)        # the tiny shapes run faster on one

@@ -91,6 +91,23 @@ pos = batched.replay_sequences(cfg, [[xyz[i][mask[i]] for i in range(2)]] * 2,
                                device="cpu", sweep_capacity=256)
 assert pos.shape == (2, 2, 3)
 
+# The batched step at mixed starts (a fresh lane beside one past its
+# first sweep), each lane on its own cadence, and the dynamic chunk.
+one, _ = batched.make_batched_step(cfg)(
+    batched.create_states(cfg, 1, "cpu"),
+    chip_smoke.RawSweep(x[None, 0], m[None, 0]))
+mixed = batched.stack_states([batched.lane(one, 0),
+                              batched.lane(batched.create_states(cfg, 1, "cpu"), 0)])
+_, mout = batched.make_batched_step(cfg)(
+    mixed, chip_smoke.RawSweep(chip_smoke.torch.stack([x[1], x[0]]),
+                               chip_smoke.torch.stack([m[1], m[0]])))
+assert mout.packed[:, 18].tolist() == [1.0, 0.0]          # lane 0 maps
+assert (mout.packed[0] == packed[1]).all()
+_, cout = batched.make_batched_chunk(cfg, static_cadence=False)(
+    mixed, chip_smoke.RawSweep(chip_smoke.torch.stack([x, x]),
+                               chip_smoke.torch.stack([m, m])))
+assert cout.packed[:, :, 18].tolist() == [[1.0, 0.0], [0.0, 1.0]]
+
 # The multi-process replay, in a one-process gloo group.
 from loam_velodyne_torch.parallel import multihost
 from loam_velodyne_torch.tools import dryrun_dcn

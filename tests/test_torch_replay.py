@@ -1,6 +1,7 @@
 """Port parity, the batched replay: loam_velodyne_torch.parallel.replay
-(B lanes of one op stream, ``torch.func.vmap`` over ``run_chunk``)
-against the JAX package's ``make_batched_chunk`` (``jax.vmap``) and
+(B lanes of one op stream, ``torch.func.vmap`` over ``run_chunk``;
+the batched per-sweep step at mixed starts is
+tests/test_torch_batched_step.py's) against the JAX package's ``make_batched_chunk`` (``jax.vmap``) and
 against the port's own single-stream ``run_chunk``, on the CPU.
 
 Every vmapped call runs with the vmap fallback off (``replay``
@@ -284,20 +285,29 @@ def test_two_chunks_continue_from_the_host_cadence(inputs, runs):
 
 
 def test_batched_step_matches_the_chunk(inputs, runs):
-    """make_batched_step sweep by sweep ("on" / "off" from the host
-    cadence, static schedules) gives the batched chunk's outputs."""
+    """make_batched_step sweep by sweep (each lane's decisions taken on
+    the device, both odometry branches and mapping on every lane, each
+    lane keeping its own) gives the static batched chunk's outputs and
+    state bit for bit over aligned lanes, and so does
+    make_batched_chunk(static_cadence=False)."""
     cfg, xyz, mask = inputs
     pc = _port(cfg)
     step = treplay.make_batched_step(pc)
     states = treplay.create_states(pc, B, "cpu")
-    cadence = teng.Cadence()
     rows = []
     with no_fallback_warnings():
         for k in range(K):
-            states, o = step(states, TRaw(_t(xyz[:, k]), _t(mask[:, k])), cadence)
-            cadence = cadence.advance(pc)
+            states, o = step(states, TRaw(_t(xyz[:, k]), _t(mask[:, k])))
             rows.append(o.packed)
+        chunk = treplay.make_batched_chunk(pc, static_cadence=False)
+        states_c, outs_c = chunk(treplay.create_states(pc, B, "cpu"),
+                                 TRaw(_t(xyz), _t(mask)))
     assert torch.equal(torch.stack(rows, 1), runs[False][1].packed)
+    assert torch.equal(outs_c.packed, runs[False][1].packed)
+    for got in (states, states_c):
+        for a, b in zip(teng.graph_mod.leaves(got),
+                        teng.graph_mod.leaves(runs[False][2])):
+            assert torch.equal(a, b)
 
 
 def test_replay_sequences_tiny():
@@ -313,14 +323,25 @@ def test_replay_sequences_tiny():
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jreplay.tiny_config())
 
 
-def test_dynamic_cadence_and_unshared_starts_are_refused(inputs):
+@pytest.mark.parametrize("case", ["unshared_starts", "off_the_boundary"])
+def test_static_chunk_refuses_unaligned_lanes(inputs, case):
+    """The static chunk schedules mapping on the host, so its lanes must
+    share their start, on an io_ratio boundary (the batched step, and
+    make_batched_chunk(static_cadence=False), take any starts)."""
     cfg = _port(inputs[0])
-    with pytest.raises(ValueError, match="static cadence"):
-        treplay.make_batched_chunk(cfg, static_cadence=False)
     a = teng.EngineState.create(cfg, "cpu")
-    b = a._replace(sweep=a.sweep + 2)
-    with pytest.raises(ValueError, match="share their start"):
-        treplay.lanes_cadence(treplay.stack_states([a, b]))
+    chunk = treplay.make_batched_chunk(cfg)
+    raws = TRaw(torch.zeros((2, 2, 8, 3)), torch.zeros((2, 2, 8), dtype=torch.bool))
+    if case == "unshared_starts":
+        states = treplay.stack_states([a, a._replace(sweep=a.sweep + 2)])
+        with pytest.raises(ValueError, match="share their start"):
+            treplay.lanes_cadence(states)
+        with pytest.raises(ValueError, match="share their start"):
+            chunk(states, raws)
+    else:
+        with pytest.raises(ValueError, match="not aligned"):
+            chunk(treplay.stack_states([a, a]), raws,
+                  teng.Cadence(1, 0, True))
 
 
 # Lane forms against their plain twins on the CPU, at small shapes, and
