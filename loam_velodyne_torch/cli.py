@@ -292,20 +292,26 @@ def cmd_bench(args):
 
 def cmd_profile(args):
     """Record a device trace (torch.profiler, Chrome trace) over N
-    sweeps after a warm-up."""
+    sweeps after a warm-up, with the program's tracing on from before
+    the warm-up captures the graphs: its spans and stamps join the
+    trace."""
     cfg = _build_config(args)
     from loam_velodyne_torch.io import synthetic
-    from loam_velodyne_torch.utils.profiling import device_trace
+    from loam_velodyne_torch.utils import profiling
     sweeps, _, _ = synthetic.generate_sequence(args.sweeps + args.warmup,
                                                lidar=cfg.lidar,
                                                n_azimuth=args.azimuth)
     args.system_delay = 0
     drv = _driver(args, cfg)
-    for pts in sweeps[:args.warmup]:
-        drv.process_sweep(pts)
-    with device_trace(args.out):
-        for pts in sweeps[args.warmup:]:
+    profiling.enable(drv.device)
+    try:
+        for pts in sweeps[:args.warmup]:
             drv.process_sweep(pts)
+        with profiling.device_trace(args.out):
+            for pts in sweeps[args.warmup:]:
+                drv.process_sweep(pts)
+    finally:
+        profiling.disable()
     print(json.dumps({"trace_dir": args.out, "sweeps": args.sweeps,
                       "mean_step_ms": round(
                           1e3 * sum(drv.step_times[args.warmup:])
@@ -403,8 +409,16 @@ def main(argv=None):
     _device_flag(benchp)
     benchp.set_defaults(fn=cmd_bench)
 
-    profp = sub.add_parser("profile",
-                           help="capture a device trace over N sweeps")
+    profp = sub.add_parser(
+        "profile",
+        help="capture a device trace over N sweeps into OUT/trace.json "
+             "(Chrome trace, Perfetto): the profiler's host operators and "
+             "card kernels; the program's spans (pid 'loam host spans': "
+             "each sweep's driver.process_sweep with driver.pad, "
+             "engine.enqueue, driver.readback, driver.consume); and each "
+             "layer's interval on the card between its stamps (pid 'loam "
+             "card stamps', a row a layer: front, odometry, mapping, tail, "
+             "copies, cadence), on the profiler's timeline")
     profp.add_argument("--sweeps", type=int, default=4)
     profp.add_argument("--warmup", type=int, default=3)
     profp.add_argument("--azimuth", type=int, default=900)

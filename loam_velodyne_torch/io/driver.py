@@ -21,12 +21,27 @@ sweep N+1 (pad, host-to-device copy, IMU window) and only then waits
 for sweep N-1's row. That wait is its one synchronization per sweep: on
 the card the step's graphs decide the GNs' stop on the device
 (conditional nodes), so the dispatch reads nothing back.
+
+The driver's layers are spans (``utils/profiling.py``): each sweep a
+step, ``driver.process_sweep`` (a loop iteration of ``run_live``, a
+chunk of ``run_chunked``), holding ``driver.pad`` (the pad and the copy
+to the card; in ``run_live`` the next sweep's IMU window too),
+``engine.enqueue`` (the engine's call, in ``process_sweep`` with the
+sweep's IMU window: slot copies and graph launches on the host, then the
+start of the packed rows' copy into pinned memory, ``_readback``),
+``driver.readback`` (the wait for that copy, ``_drain``: every path
+reads its rows back this one way), ``driver.consume`` (with
+``driver.surround`` and ``driver.compact``, whose device work is stamped
+too) and ``driver.checkpoint``. ``step_times``, ``live_events`` and the
+``Metrics`` ``step`` record are views of those spans; with tracing on
+the spans are kept in the records, and the card's stamps are read after
+the driver's readback, outside the ``step`` record
+(``profiling.collect``).
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -40,6 +55,7 @@ from loam_velodyne_torch.models.engine import Engine, EngineOutputs, EngineState
 from loam_velodyne_torch.ops.imu import ImuWindow
 from loam_velodyne_torch.ops.scan import RawSweep
 from loam_velodyne_torch.utils import math as lm
+from loam_velodyne_torch.utils import profiling
 from loam_velodyne_torch.utils.checkpoint import load_pytree, save_pytree
 from loam_velodyne_torch.utils.profiling import Metrics
 
@@ -122,16 +138,22 @@ class LoamDriver:
         if self._delay_left > 0:
             self._delay_left -= 1
             return None
-        raw = self.pad_sweep(pts)
-        t0 = time.perf_counter()
-        outs = self.engine.step(raw.xyz, raw.mask, self._window(stamp))
-        self._stepped += 1
-        p = outs.packed.cpu().numpy()            # the one readback
-        dt = time.perf_counter() - t0
-        self.step_times.append(dt)
-        self.metrics.record("step", dt)
-        self._consume_packed(p)
-        self._maybe_checkpoint()
+        with profiling.span("driver.process_sweep", step=True):
+            with profiling.span("driver.pad"):
+                raw = self.pad_sweep(pts)
+            with profiling.span("engine.enqueue") as enqueue:
+                outs = self.engine.step(raw.xyz, raw.mask, self._window(stamp))
+                pending = self._readback(outs.packed)
+            self._stepped += 1
+            with profiling.span("driver.readback") as readback:
+                p = self._drain(pending)                # the one readback
+            dt = (readback.t1 - enqueue.t0) / 1e9
+            self.step_times.append(dt)
+            self.metrics.record("step", dt)
+            profiling.collect()
+            with profiling.span("driver.consume"):
+                self._consume_packed(p)
+            self._maybe_checkpoint()
         return EngineOutputs.unpack(p)
 
     def _consume_packed(self, p: np.ndarray) -> None:
@@ -164,9 +186,11 @@ class LoamDriver:
             cnt = int(ms.archive_cnt)
         if cnt <= 3 * mcfg.archive_capacity // 4:
             return
-        xyz, kind, valid, cnt = mapping_mod.compact_archive(
-            (ms.archive_xyz, ms.archive_kind, ms.archive_valid, ms.archive_cnt),
-            mcfg)
+        with profiling.span("driver.compact"), \
+                profiling.stamps("compact", ms.archive_xyz):
+            xyz, kind, valid, cnt = mapping_mod.compact_archive(
+                (ms.archive_xyz, ms.archive_kind, ms.archive_valid,
+                 ms.archive_cnt), mcfg)
         self.engine.state = self.engine.state._replace(mapping=ms._replace(
             archive_xyz=xyz, archive_kind=kind, archive_valid=valid,
             archive_cnt=cnt))
@@ -184,11 +208,12 @@ class LoamDriver:
         return self._surround_np
 
     def _build_surround(self) -> None:
-        """Dispatch the surround-map build from the current state; its
-        dispatch time is a metric of its own."""
-        t0 = time.perf_counter()
-        ps = mapping_mod.surround_map(self.engine.state.mapping, self.cfg)
-        self.metrics.record("surround_dispatch", time.perf_counter() - t0)
+        """Dispatch the surround-map build from the current state (the
+        ``driver.surround`` span, its device work stamped ``surround``)."""
+        ms = self.engine.state.mapping
+        with profiling.span("driver.surround"), \
+                profiling.stamps("surround", ms.transform_tobe):
+            ps = mapping_mod.surround_map(ms, self.cfg)
         self._surround_device = ps
         self._surround_np = None
         self.surround_count += 1
@@ -200,7 +225,8 @@ class LoamDriver:
         if not (self.checkpoint_path and self.checkpoint_every
                 and self._stepped % self.checkpoint_every == 0):
             return False
-        self.save_checkpoint(self.checkpoint_path)
+        with profiling.span("driver.checkpoint"):
+            self.save_checkpoint(self.checkpoint_path)
         return True
 
     def resume(self) -> bool:
@@ -220,16 +246,18 @@ class LoamDriver:
         return self.positions()
 
     def _readback(self, packed: torch.Tensor):
-        """Start the packed row's copy to the host: into one of two
-        pinned buffers behind a CUDA event on the card."""
+        """Start the packed rows' copy to the host: into one of two
+        pinned buffers of their shape behind a CUDA event on the card,
+        the copy stamped ``copy.out``; ``_drain`` waits for it."""
         if self.device.type != "cuda":
             return packed, None
-        if not self._pinned:
+        if not self._pinned or self._pinned[0].shape != packed.shape:
             self._pinned = [torch.empty(packed.shape, dtype=packed.dtype,
                                         pin_memory=True) for _ in range(2)]
         buf = self._pinned[self._slot]
         self._slot ^= 1
-        buf.copy_(packed, non_blocking=True)
+        with profiling.stamps("copy.out", packed):
+            buf.copy_(packed, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
         return buf, ev
@@ -249,50 +277,57 @@ class LoamDriver:
         readback sits on the per-sweep critical path. A pose reaches the
         host one iteration later. stamps: each sweep's start time, for
         the IMU tracker. Returns per-sweep wall latencies in seconds;
-        ``live_events`` splits each into dispatch (the step), stage (the
-        next sweep's pad, copy and IMU window) and consume (the drain
-        and the cadence work it triggers: surround, compaction, the
-        auto-checkpoint)."""
+        ``live_events`` splits each into dispatch (the step and the
+        readback's start: ``engine.enqueue``), stage (the next sweep's
+        pad, copy and IMU window: ``driver.pad``) and consume (the drain,
+        ``driver.readback``, and the cadence work it triggers: surround,
+        compaction, the auto-checkpoint: ``driver.consume``), each
+        iteration a ``driver.process_sweep`` step."""
         it = iter(sweeps)
         st = None if stamps is None else iter(stamps)
 
         def stage():
-            pts = next(it)
-            return self.pad_sweep(pts), self._window(None if st is None else next(st))
+            """The next sweep staged (None at the end), and its span."""
+            with profiling.span("driver.pad") as pad:
+                pts = next(it, None)
+                if pts is None:
+                    return None, pad
+                staged = (self.pad_sweep(pts),
+                          self._window(None if st is None else next(st)))
+            return staged, pad
 
-        try:
-            cur = stage()
-        except StopIteration:
+        cur, _ = stage()
+        if cur is None:
             return []
         lat: List[float] = []
         self.live_events = []
         done = False
         pending = None
         while not done:
-            t0 = time.perf_counter()
-            outs = self.engine.step(cur[0].xyz, cur[0].mask, cur[1])
-            self._stepped += 1
-            this = self._readback(outs.packed)
-            t_disp = time.perf_counter()
-            try:
-                cur = stage()
-            except StopIteration:
-                done = True
-            t_stage = time.perf_counter()
-            counters = self.metrics.counters
-            sur0 = counters.get("surround_maps", 0)
-            cmp0 = counters.get("archive_compactions", 0)
-            if pending is not None:
-                self._consume_packed(self._drain(pending))
-            ckpt = self._maybe_checkpoint()
-            t_cons = time.perf_counter()
+            with profiling.span("driver.process_sweep", step=True):
+                with profiling.span("engine.enqueue") as dispatch:
+                    outs = self.engine.step(cur[0].xyz, cur[0].mask, cur[1])
+                    self._stepped += 1
+                    this = self._readback(outs.packed)
+                nxt, staging = stage()
+                done = nxt is None
+                cur = cur if done else nxt
+                counters = self.metrics.counters
+                sur0 = counters.get("surround_maps", 0)
+                cmp0 = counters.get("archive_compactions", 0)
+                with profiling.span("driver.consume") as consume:
+                    if pending is not None:
+                        with profiling.span("driver.readback"):
+                            p = self._drain(pending)
+                        self._consume_packed(p)
+                    ckpt = self._maybe_checkpoint()
             pending = this
-            dt = t_cons - t0
+            dt = (consume.t1 - dispatch.t0) / 1e9
             lat.append(dt)
             self.live_events.append({
-                "dispatch_ms": 1e3 * (t_disp - t0),
-                "stage_ms": 1e3 * (t_stage - t_disp),
-                "consume_ms": 1e3 * (t_cons - t_stage),
+                "dispatch_ms": dispatch.seconds * 1e3,
+                "stage_ms": staging.seconds * 1e3,
+                "consume_ms": consume.seconds * 1e3,
                 "surround": counters.get("surround_maps", 0) - sur0,
                 "compact": counters.get("archive_compactions", 0) - cmp0,
                 "checkpoint": int(ckpt),
@@ -300,6 +335,7 @@ class LoamDriver:
             self.step_times.append(dt)
             self.metrics.record("step", dt)
         self._consume_packed(self._drain(pending))
+        profiling.collect()
         return lat
 
     def run_chunked(self, sweeps: List[np.ndarray], chunk: int = 8,
@@ -324,14 +360,19 @@ class LoamDriver:
             if use_imu:
                 rows = [self._window(s) for s in stamps[start:start + k]]
                 wins = ImuWindow(*(torch.stack(a) for a in zip(*rows)))
-            t0 = time.perf_counter()
-            outs = self.engine.run_chunk(torch.from_numpy(xyz),
-                                         torch.from_numpy(mask), wins,
-                                         static_cadence=False)
-            self._stepped += k
-            packed = outs.packed.cpu().numpy()       # one (K, 29) readback
-            self.step_times.append((time.perf_counter() - t0) / k)
-            self._consume_packed(packed)
+            with profiling.span("driver.process_sweep", step=True, steps=k):
+                with profiling.span("engine.enqueue") as enqueue:
+                    outs = self.engine.run_chunk(torch.from_numpy(xyz),
+                                                 torch.from_numpy(mask), wins,
+                                                 static_cadence=False)
+                    pending = self._readback(outs.packed)
+                self._stepped += k
+                with profiling.span("driver.readback") as readback:
+                    packed = self._drain(pending)           # one (K, 29)
+                self.step_times.append((readback.t1 - enqueue.t0) / 1e9 / k)
+                profiling.collect()
+                with profiling.span("driver.consume"):
+                    self._consume_packed(packed)
         return self.positions()
 
     def positions(self) -> np.ndarray:

@@ -5,11 +5,18 @@ same source, unchanged, with g++ into ``build/torch_native/`` at the
 repository root (its own directory, apart from the JAX package's
 ``native/build/``); plain C ABI + ctypes. All call sites degrade to the
 pure-Python readers if a compiler is unavailable.
+
+Processes that load it at once (test workers, say) build it one at a
+time: the build holds an ``fcntl`` lock beside the library, compiles
+into a file of its own and renames it into place, so no process loads a
+library half written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -26,19 +33,47 @@ _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
-def _try_build() -> Optional[str]:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    base = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-            "-o", _LIB, _SRC]
-    for cmd in (base + ["-lbz2"], base):
+@contextlib.contextmanager
+def build_lock(lib: str):
+    """An exclusive ``fcntl`` lock on ``lib``'s lock file, across
+    processes, for its build."""
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    with open(lib + ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=120)
-        except (OSError, subprocess.TimeoutExpired):
-            return None
-        if r.returncode == 0:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _stale(lib: str) -> bool:
+    return not os.path.exists(lib) or (
+        os.path.exists(_SRC) and os.path.getmtime(_SRC) > os.path.getmtime(lib))
+
+
+def _try_build() -> Optional[str]:
+    """Build the library unless another process has (under the lock);
+    None if the toolchain fails."""
+    with build_lock(_LIB):
+        if not _stale(_LIB):
             return _LIB
-    return None
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        base = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                "-o", tmp, _SRC]
+        try:
+            for cmd in (base + ["-lbz2"], base):
+                try:
+                    r = subprocess.run(cmd, capture_output=True, text=True,
+                                       timeout=120)
+                except (OSError, subprocess.TimeoutExpired):
+                    return None
+                if r.returncode == 0:
+                    os.replace(tmp, _LIB)
+                    return _LIB
+            return None
+        finally:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(tmp)
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -51,9 +86,7 @@ def load() -> Optional[ctypes.CDLL]:
         if _build_failed:
             return None
         path = _LIB
-        if not os.path.exists(path) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_SRC) > os.path.getmtime(path)):
+        if _stale(path):
             path = _try_build()
         if path is None or not os.path.exists(path):
             _build_failed = True

@@ -50,7 +50,10 @@ Counts. A kernel launch captured inside a region is counted on the card
 when the region runs (``ops/launches.py::count``). ``launches.needed``,
 around an eager run, tallies the launches whose regions' predicates all
 hold (``launches.within``, here): the independent expectation of a
-graphed run's counts.
+graphed run's counts. The tracing's counters (``launches.lanes``, in the
+GN's refresh phases) count the same way: in a capture when the card
+runs the region, eagerly weighted by the predicates of the regions
+around them.
 
 A graphed path that cannot capture a conditional node raises and names
 what is missing; nothing falls back to host reads or to running every

@@ -44,6 +44,7 @@ from loam_velodyne_torch.ops import scan as scan_mod
 from loam_velodyne_torch.ops.features import SweepFeatures, extract_features
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
+from loam_velodyne_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -183,6 +184,7 @@ class Front(NamedTuple):
     ingest_dropped: Tensor
 
 
+@profiling.stamped("front")
 def front(raw: scan_mod.RawSweep, imu_window: Optional[imu_ops.ImuWindow],
           cfg: LoamConfig) -> Front:
     """Ingest (K1) and features (K2), and the IMU window's summaries."""
@@ -214,6 +216,7 @@ def gate(state: EngineState, cfg: LoamConfig) -> Tuple[Tensor, Tensor]:
     return mapping_input, due
 
 
+@profiling.stamped("tail")
 def close(state: EngineState, f: Front, odometry, mapped,
           mapping_input, due) -> Tuple[EngineState, EngineOutputs]:
     """The end of a sweep: fusion, the new state and the outputs.
@@ -386,11 +389,13 @@ def _mapping_gn(state: EngineState, odometry, cfg: LoamConfig):
     oouts = odometry[1]
     fr = mapping_mod.prepare(state.mapping, oouts.transform_sum,
                              oouts.corner_cloud, oouts.surf_cloud, cfg)
-    targets, run = mapping_mod.gn_targets(
-        fr.corner_stack, fr.surf_stack, fr.map_c_xyz, fr.map_c_mask,
-        fr.map_s_xyz, fr.map_s_mask, cfg)
-    return fr, mapping_mod.gn_phases(odometry_mod.gn_start(fr.tobe, run),
-                                     targets, cfg)
+    with profiling.stamps("mapping.gn", fr.tobe):
+        targets, run = mapping_mod.gn_targets(
+            fr.corner_stack, fr.surf_stack, fr.map_c_xyz, fr.map_c_mask,
+            fr.map_s_xyz, fr.map_s_mask, cfg)
+        carry = mapping_mod.gn_phases(odometry_mod.gn_start(fr.tobe, run),
+                                      targets, cfg)
+    return fr, carry
 
 
 def _tail(state: EngineState, f: Front, odometry, fr=None, carry=None, *,

@@ -59,7 +59,13 @@ of the JAX driver's dict of jitted chunk steps:
   launch on the card, beside it (``ops/launches.py``): each replay adds
   the launches it runs, those inside a conditional node only when the
   card runs the node. ``launches.settle`` adds them to the wrappers'
-  ``launches`` where the caller synchronises. The warm-up adds nothing.
+  ``launches`` where the caller synchronises. The warm-up adds nothing,
+  to them or to the tracing's counters.
+- **Tracing** (``utils/profiling.py``, when on at the capture): the
+  layers' stamps are nodes of the graph, and the copies around a replay
+  (the caller's state and sweeps in, the outputs out: ``copy.in``,
+  ``copy.out``) and a graph's own writes of its results (``copy.slots``)
+  are stamped too.
 
 The graphs run on a CUDA device only (``ChunkGraphs`` and
 ``SweepGraphs`` raise on any other); the CPU runs the eager chunk and
@@ -80,6 +86,7 @@ from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import conditional
 from loam_velodyne_torch.ops import (corresp_kernel, greedy_kernel,
                                      grid_kernel, knn_kernel, launches)
+from loam_velodyne_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -215,9 +222,9 @@ def capture(device: torch.device, stream, warm: Callable, body: Callable,
         t0 = time.perf_counter()
         conditional.prepare(device)
         stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
+        with launches.named_unchanged(), torch.cuda.stream(stream):
             warm()
-        torch.cuda.synchronize(device)
+            torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for f, n in zip(COUNTED, before):
@@ -317,20 +324,25 @@ class ChunkGraphs:
             bufs = _Buffers(tree_map(lambda t: t.to(device, copy=True), state),
                             first(xyz), first(mask), tree_map(first, wins))
             self._buffers[bkey] = bufs
-        self._copy_in(bufs.state, state)
+        with profiling.stamps("copy.in", xyz):
+            self._copy_in(bufs.state, state)
         outs = []
         for g, start, branch in groups:
             part = (lambda t: t.narrow(ax, g * io, io))
-            bufs.xyz.copy_(part(xyz))
-            bufs.mask.copy_(part(mask))
-            self._copy_in(bufs.wins, tree_map(part, wins))
+            with profiling.stamps("copy.in", xyz):
+                bufs.xyz.copy_(part(xyz))
+                bufs.mask.copy_(part(mask))
+                self._copy_in(bufs.wins, tree_map(part, wins))
             key = bkey + (branch,)
             cap = self._graphs.get(key)
             if cap is None:
                 cap = self._graphs[key] = self._capture(bufs, start, device)
             cap.graph.replay()
-            outs.append(tree_map(torch.clone, cap.outs))
-        return tree_map(torch.clone, bufs.state), _cat(outs, ax)
+            with profiling.stamps("copy.out", xyz):
+                outs.append(tree_map(torch.clone, cap.outs))
+        with profiling.stamps("copy.out", xyz):
+            new_state = tree_map(torch.clone, bufs.state)
+        return new_state, _cat(outs, ax)
 
     @staticmethod
     def _copy_in(bufs, tree) -> None:
@@ -363,7 +375,9 @@ class ChunkGraphs:
     def _end_state(state_bufs, new_state) -> None:
         """Copy the group's new state into the state buffers, inside the
         capture."""
-        _write_into(leaves(state_bufs), leaves(new_state))
+        bufs = leaves(state_bufs)
+        with profiling.stamps("copy.slots", bufs[0]):
+            _write_into(bufs, leaves(new_state))
 
 
 class Segment(NamedTuple):
@@ -427,11 +441,13 @@ class SweepGraphs:
             self.slots[slot] = tree_map(
                 lambda t: t.to(self.device, copy=True), tree)
         else:
-            ChunkGraphs._copy_in(bufs, tree)
+            with profiling.stamps("copy.in", self.device):
+                ChunkGraphs._copy_in(bufs, tree)
 
     def take(self, slot):
         """Fresh copies of a slot's tensors: no later replay writes them."""
-        return tree_map(torch.clone, self.slots[slot])
+        with profiling.stamps("copy.out", self.device):
+            return tree_map(torch.clone, self.slots[slot])
 
     def run(self, key, segment: Segment) -> None:
         """Replay the graph of ``key``, captured on its first use."""
@@ -476,7 +492,8 @@ class SweepGraphs:
                                  "layout than the slot holds")
             have += bufs
             new += got
-        _write_into(have, new)
+        with profiling.stamps("copy.slots", have[0]):
+            _write_into(have, new)
 
 
 _sweep_graphs: dict = {}

@@ -42,13 +42,14 @@ from loam_velodyne_torch.config import LoamConfig, MappingConfig
 from loam_velodyne_torch.models import conditional
 from loam_velodyne_torch.models.odometry import (GnCarry, degeneracy_projector,
                                                  gn_start, n_phases, solve_gn)
-from loam_velodyne_torch.ops import fit
+from loam_velodyne_torch.ops import fit, launches
 from loam_velodyne_torch.ops.features import top_k
 from loam_velodyne_torch.ops.neighbors import (SortedCloud, sort_cloud,
                                                tiled_windowed_knn)
 from loam_velodyne_torch.ops.voxel import voxel_downsample
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
+from loam_velodyne_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -546,7 +547,9 @@ def gn_phase(carry: GnCarry, phase: int, targets: GnTargets,
     carried pose (K4), then the phase's iterations against them, each
     after the stop frozen by masks and each after the phase's first a
     conditional region (as ``odometry.gn_phase``). Only the carry
-    leaves a phase."""
+    leaves a phase. With tracing on, the phase counts its lanes and its
+    running lanes (``mapping.refresh``)."""
+    launches.lanes("mapping.refresh", carry.done)
     m = cfg.mapping
     fits = _refresh_fits(carry.tf, targets, m)
 
@@ -582,6 +585,7 @@ def gn_phases(carry: GnCarry, targets: GnTargets, cfg: LoamConfig) -> GnCarry:
     return carry
 
 
+@profiling.stamped("mapping.gn")
 def optimize_pose(corner_stack: PointSet, surf_stack: PointSet,
                   map_corner_xyz: Tensor, map_corner_mask: Tensor,
                   map_surf_xyz: Tensor, map_surf_mask: Tensor,
@@ -687,6 +691,7 @@ class MapFrame(NamedTuple):
     map_s_mask: Tensor
 
 
+@profiling.stamped("mapping.prepare")
 def prepare(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
             surf_cloud: PointSet, cfg: LoamConfig) -> MapFrame:
     """The frame up to its GN: the pose associated to the map, the
@@ -740,6 +745,7 @@ def prepare(state: MappingState, odom_pose: Tensor, corner_cloud: PointSet,
         map_s_xyz=map_s_xyz, map_s_mask=map_s_mask)
 
 
+@profiling.stamped("mapping.finish")
 def finish(state: MappingState, fr: MapFrame, tobe: Tensor,
            imu_rpy: Optional[Tuple[Tensor, Tensor]], cfg: LoamConfig
            ) -> Tuple[MappingState, MappingOutputs]:

@@ -41,12 +41,14 @@ from torch.func import grad, vmap
 
 from loam_velodyne_torch.config import LoamConfig
 from loam_velodyne_torch.models import conditional
+from loam_velodyne_torch.ops import launches
 from loam_velodyne_torch.ops.features import SweepFeatures
 from loam_velodyne_torch.ops.neighbors import (corner_correspondences_fused,
                                                surf_correspondences_fused)
 from loam_velodyne_torch.types import PointSet
 from loam_velodyne_torch.utils import math as lm
 from loam_velodyne_torch.utils.linalg import jacobi_eigh
+from loam_velodyne_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -245,7 +247,10 @@ def gn_phase(carry: GnCarry, phase: int, sharp: PointSet, flat: PointSet,
     once the carry is done; each iteration after the phase's first is a
     conditional region (skipped on the card once the carry is done).
     ``phase`` is a Python int: it fixes which iterations are weighted
-    and which computes the projector. Only the carry leaves a phase."""
+    and which computes the projector. Only the carry leaves a phase. With
+    tracing on, the phase counts its lanes and its running lanes
+    (``odometry.refresh``, ``ops/launches.py::lanes``)."""
+    launches.lanes("odometry.refresh", carry.done)
     odo = cfg.odometry
     refresh_every = odo.corresp_refresh_every
     x_c = lm.transform_to_start(sharp.xyz, sharp.rel, carry.tf)
@@ -411,6 +416,7 @@ def select(flag: Tensor, a, b):
     return torch.where(flag, a, b)
 
 
+@profiling.stamped("odometry")
 def step(state: OdometryState, feats: SweepFeatures, cfg: LoamConfig,
          initialized: bool | Tensor, imu: ImuSweepState | None = None,
          static_schedule: bool = True

@@ -10,7 +10,9 @@ stale library is never loaded. Besides the four kernels of the pipeline
 it holds an empty kernel (``noop``), whose time in a CUDA graph is the
 launch floor the kernels are read against, and the two entry points
 that capture a CUDA-graph conditional node (``if_begin`` / ``if_end``,
-``csrc/cond.cu``; ``models/conditional.py`` uses them). K1's and K3's entry points
+``csrc/cond.cu``; ``models/conditional.py`` uses them), and the tracing's
+one-thread stamp of the card's clock (``stamp``, ``csrc/stamp.cu``;
+``ops/launches.py`` holds its ring). K1's and K3's entry points
 take a lane count: B lanes in one launch (1 for the single-lane call).
 
 Flags: ``-fmad=false`` keeps ``a*b + c`` as a separate multiply and add,
@@ -52,6 +54,7 @@ _SIGNATURES = {
     "loam_noop": [_P],
     "loam_if_begin": [_P, _P, _P],
     "loam_if_end": [ctypes.POINTER(ctypes.c_size_t), _P],
+    "loam_stamp": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 
 _lib = None
@@ -143,6 +146,15 @@ def noop(device: torch.device) -> None:
     """Launch the empty kernel on ``device``'s current stream (the
     launch floor; it counts nothing)."""
     launch("loam_noop", device)
+
+
+def stamp(ring: torch.Tensor, cursor: torch.Tensor, code: int) -> None:
+    """Launch the stamp on the current stream of ``ring``'s card: the
+    card's clock and ``code`` into ``ring`` ((capacity, 2) int64) at the
+    slot the cursor (a one-element int64 on the card) points to. In a
+    capture it becomes a node of the graph."""
+    launch("loam_stamp", ring.device, ring.data_ptr(), cursor.data_ptr(),
+           ring.shape[0], code)
 
 
 def if_begin(pred: torch.Tensor, body, stream) -> None:

@@ -40,6 +40,11 @@ Two forms, as in the JAX package:
 The vmapped calls run with the vmap fallback switched off: an operation
 without a batching rule raises instead of running lane by lane.
 
+Each call of ``make_batched_chunk``'s callable is a step of K sweeps of
+every lane for the tracing (``utils/profiling.py``): a ``replay.chunk``
+span holding the ``engine.enqueue`` span of its copies and graph
+launches; a call of ``make_batched_step``'s is a ``replay.step``.
+
 There is no mesh: this runs the lanes on one device.
 """
 
@@ -57,6 +62,7 @@ from loam_velodyne_torch.models import engine as engine_mod
 from loam_velodyne_torch.models import graph as graph_mod
 from loam_velodyne_torch.ops import imu as imu_ops
 from loam_velodyne_torch.ops.scan import RawSweep
+from loam_velodyne_torch.utils import profiling
 
 Tensor = torch.Tensor
 Cadence = engine_mod.Cadence
@@ -190,13 +196,18 @@ def make_batched_chunk(cfg: LoamConfig, with_imu: bool = False,
 
     def chunk(states, raws: RawSweep, cadence: Optional[Cadence] = None,
               imu_windows: Optional[imu_ops.ImuWindow] = None):
-        if raws.xyz.device.type != "cuda":
-            return eager(states, raws, cadence, imu_windows)
-        _check_imu(with_imu, imu_windows)
-        if cadence is None:
-            cadence = lanes_cadence(states)
-        engine_mod.check_static_chunk(cfg, raws.xyz.shape[1], cadence)
-        return graphs(states, raws.xyz, raws.mask, imu_windows, cadence)
+        with profiling.span("replay.chunk", step=True,
+                            steps=raws.xyz.shape[1]):
+            if raws.xyz.device.type != "cuda":
+                with profiling.span("engine.enqueue"):
+                    return eager(states, raws, cadence, imu_windows)
+            _check_imu(with_imu, imu_windows)
+            if cadence is None:
+                cadence = lanes_cadence(states)
+            engine_mod.check_static_chunk(cfg, raws.xyz.shape[1], cadence)
+            with profiling.span("engine.enqueue"):
+                return graphs(states, raws.xyz, raws.mask, imu_windows,
+                              cadence)
 
     chunk.graphs = graphs
     return chunk
@@ -271,11 +282,14 @@ def make_batched_step(cfg: LoamConfig, with_imu: bool = False):
 
     def step(states, raw: RawSweep,
              imu_window: Optional[imu_ops.ImuWindow] = None):
-        if raw.xyz.device.type != "cuda":
-            return eager(states, raw, imu_window)
-        _check_imu(with_imu, imu_window)
-        return batched_step_graphed(graph_mod.sweep_graphs(cfg, raw.xyz.device),
-                                    cfg, states, raw, imu_window)
+        with profiling.span("replay.step", step=True), \
+                profiling.span("engine.enqueue"):
+            if raw.xyz.device.type != "cuda":
+                return eager(states, raw, imu_window)
+            _check_imu(with_imu, imu_window)
+            return batched_step_graphed(
+                graph_mod.sweep_graphs(cfg, raw.xyz.device), cfg, states,
+                raw, imu_window)
 
     return step
 
