@@ -14,7 +14,7 @@ capacities (as ``chip_smoke.py`` does) and measures, in one process:
   timeline (busy time), and the busy share of the profiled and of the
   unprofiled wall time; the profiled chunk's trace is written to
   ``build/profile_step/trace.json``;
-- one call of the odometry Jacobian (``vmap(grad)``) at 512 points.
+- one call of the odometry Jacobian rows (closed form) at 512 points.
 
 With ``--lanes B`` it profiles the batched replay instead
 (``parallel/replay.py``: B identical lanes of the bench sequence, one
